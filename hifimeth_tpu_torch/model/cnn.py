@@ -1,0 +1,181 @@
+"""DNAModNet in PyTorch, with every BatchNorm folded for inference.
+
+Architecture of the reference training code (training/model_cnn.py:8-85):
+input (B, 8, kmer) -> channelwise BatchNorm (folded to scale/shift) ->
+8x [Conv1d stride 2, BN folded into the conv, ReLU] -> flatten channel-major
+-> FC 256 -> ReLU -> FC 2.  Layer geometry (kernel sizes, widths, strides,
+pads) comes from the weights, not from constants: the shipped models use a
+first kernel of 11 (CpG, CHG) and 13 (CHH).
+
+Parameters arrive as the params pytree of the JAX package's model/cnn.py
+(numpy arrays): `bn0.{scale,shift}`, `convs[i].{w (K, Cin, Cout), b,
+stride, pad (lo, hi)}`, `fc{1,2}.{w (in, out), b}`.  `params_from_jax`
+turns that pytree into this module's state dict; `load_params_npz` reads the
+same pytree from the repository's `models/*.npz` files.
+
+Numerics: on a GPU the float32 path must not run in TF32, which keeps only
+about three decimal digits and would move the u8 probabilities by more than
+the +-1 the parity contract allows (docs/PARITY.md).  `exact_float32()`
+turns TF32 off for cuDNN convolutions and cuBLAS matrix products; the call
+engine applies it before it runs a model on the GPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def exact_float32() -> None:
+    """Run float32 convolutions and matmuls in full float32 (no TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# Parameter import
+
+
+def params_from_numpy(flat: dict[str, np.ndarray]) -> dict:
+    """{path: array} npz dict -> params pytree (the JAX package's layout)."""
+    params = {
+        "bn0": {"scale": flat["bn0.scale"], "shift": flat["bn0.shift"]},
+        "convs": [],
+        "fc1": {"w": flat["fc1.w"], "b": flat["fc1.b"]},
+        "fc2": {"w": flat["fc2.w"], "b": flat["fc2.b"]},
+    }
+    i = 0
+    while f"convs.{i}.w" in flat:
+        params["convs"].append({
+            "w": flat[f"convs.{i}.w"],
+            "b": flat[f"convs.{i}.b"],
+            "stride": int(flat[f"convs.{i}.stride"]),
+            "pad": tuple(int(x) for x in flat[f"convs.{i}.pad"]),
+        })
+        i += 1
+    return params
+
+
+def load_params_npz(path: str) -> dict:
+    with np.load(path) as z:
+        return params_from_numpy({k: z[k] for k in z.files})
+
+
+def conv_spec(params: dict) -> tuple[tuple[int, int, int], ...]:
+    """Conv geometry (stride, pad_lo, pad_hi) per layer."""
+    return tuple((int(c["stride"]), int(c["pad"][0]), int(c["pad"][1]))
+                 for c in params["convs"])
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX params pytree (numpy arrays) -> DNAModNet state dict.
+
+    Conv weights go from WIO (K, Cin, Cout) to PyTorch's (Cout, Cin, K); FC
+    weights from (in, out) to (out, in).  Each conv's (stride, lo, hi)
+    rides along as an int64 `geometry` buffer, so a state dict alone
+    rebuilds the module (DNAModNet.from_state_dict).  fc1 needs no
+    reordering: the JAX forward flattens its NWC activations channel-major
+    (model/cnn.py:204-206 there), which is how (B, C, L) flattens here."""
+    sd = {"bn0.scale": _f32(params["bn0"]["scale"]),
+          "bn0.shift": _f32(params["bn0"]["shift"])}
+    for i, (c, geom) in enumerate(zip(params["convs"], conv_spec(params))):
+        w = np.asarray(c["w"], np.float32)
+        sd[f"convs.{i}.weight"] = _f32(w.transpose(2, 1, 0))
+        sd[f"convs.{i}.bias"] = _f32(c["b"])
+        sd[f"convs.{i}.geometry"] = torch.tensor(geom, dtype=torch.int64)
+    for k in ("fc1", "fc2"):
+        sd[f"{k}.weight"] = _f32(np.asarray(params[k]["w"], np.float32).T)
+        sd[f"{k}.bias"] = _f32(params[k]["b"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Forward
+
+
+class _ChannelAffine(nn.Module):
+    """Folded input BatchNorm: x * scale + shift per channel of (B, C, L)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(channels))
+        self.register_buffer("shift", torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale[:, None] + self.shift[:, None]
+
+
+class _Conv(nn.Module):
+    """Conv1d with BN folded in, possibly asymmetric zero padding, ReLU."""
+
+    def __init__(self, cin: int, cout: int, k: int, geometry):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.register_buffer("geometry", torch.tensor(geometry, dtype=torch.int64))
+        # python ints for the forward: reading the buffer there would sync
+        # with the device on every call
+        self.stride, self.lo, self.hi = (int(v) for v in geometry)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if self.lo == self.hi:
+            h = F.conv1d(h, self.weight, self.bias, stride=self.stride,
+                         padding=self.lo)
+        else:
+            h = F.conv1d(F.pad(h, (self.lo, self.hi)), self.weight,
+                         self.bias, stride=self.stride)
+        return F.relu(h)
+
+
+class DNAModNet(nn.Module):
+    """(B, 8, kmer) float32 windows (NCW) -> (B, 2) float32 logits."""
+
+    def __init__(self, conv_shapes, geometries, fc1_in: int, fc1_out: int,
+                 n_out: int = 2):
+        super().__init__()
+        self.bn0 = _ChannelAffine(conv_shapes[0][1])
+        self.convs = nn.ModuleList(
+            _Conv(cin, cout, k, geom)
+            for (cout, cin, k), geom in zip(conv_shapes, geometries))
+        self.fc1 = nn.Linear(fc1_in, fc1_out)
+        self.fc2 = nn.Linear(fc1_out, n_out)
+
+    @classmethod
+    def from_state_dict(cls, sd: dict[str, torch.Tensor]) -> "DNAModNet":
+        n = 0
+        while f"convs.{n}.weight" in sd:
+            n += 1
+        shapes = [tuple(sd[f"convs.{i}.weight"].shape) for i in range(n)]
+        geoms = [tuple(sd[f"convs.{i}.geometry"].tolist()) for i in range(n)]
+        fc1_out, fc1_in = sd["fc1.weight"].shape
+        model = cls(shapes, geoms, fc1_in, fc1_out, sd["fc2.weight"].shape[0])
+        model.load_state_dict(sd)
+        return model.eval()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.bn0(x)
+        for conv in self.convs:
+            h = conv(h)
+        h = F.relu(self.fc1(h.flatten(1)))
+        return self.fc2(h)
+
+
+def load_model_npz(path: str, device: torch.device) -> DNAModNet:
+    """Shipped `models/<ctx>.npz` -> DNAModNet on `device`."""
+    return DNAModNet.from_state_dict(
+        params_from_jax(load_params_npz(path))).to(device)
+
+
+def logits_to_scaled_probs(logits: torch.Tensor) -> torch.Tensor:
+    """2-logit -> u8 scaled probability, the reference conversion
+    scaled = min(255, int(255 * softmax_p1)) (mod_batch.cpp:46-64)."""
+    m = logits.max(dim=-1, keepdim=True).values
+    e = torch.exp(logits - m)
+    p1 = e[..., 1] / (e[..., 0] + e[..., 1])
+    v = torch.floor(255.0 * p1).to(torch.int32)
+    return v.clamp(0, 255).to(torch.uint8)
