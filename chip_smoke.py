@@ -5,15 +5,23 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line is printed):
  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-    build of every kernel and of the host I/O core from this checkout;
- 2. every kernel of the call path against its plain PyTorch version on the
-    card, bit-exact, and timed at the main path's shape (8192 sites), beside
-    its byte bound and one PyTorch library call computing the same function;
- 3. the main path: all-context `call` through the port's run_call at the
-    shipped models' full width, over ~200 reads x 15 kb (~0.9 M sites), with
-    every kernel's launch count read just after it;
- 4. the card's output against the port's CPU run on a small input: MM/MN
-    byte-equal, ML within +-1.
+    build of every kernel (in parallel) and of the host I/O core from this
+    checkout, with each kernel's ptxas report;
+ 2. every kernel against its plain PyTorch version on the card, timed at
+    the main path's shape (8192 sites) beside its bound and a PyTorch
+    yardstick computing the same function: group_windows_t bit-exact;
+    fused_forward within 2e-3 logits and +-1 u8, for the K=11 (CpG) and
+    K=13 (CHH) models, forward and reverse, on main (clipped bases, padded
+    groups), greedy-split and odd-width plans;
+ 3. the main paths: all-context `call` through the port's run_call at the
+    shipped models' full width, over ~200 reads x 15 kb (~0.9 M sites), once
+    per gather_impl ("pallas": group_windows_t + cuDNN CNN; "fused":
+    fused_forward), each with every kernel's launch count set to 0 just
+    before it and read just after;
+ 4. outputs held to the parity contract (MM/MN byte-equal, ML within +-1,
+    at most 5% of ML bytes off): fused against pallas on the card over the
+    big input, and the card against the port's CPU run on a small input,
+    for both paths.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -27,12 +35,15 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
+#: H100 SXM device-memory rate and FP32 rate outside the tensor cores
+#: (NVIDIA data sheet), bytes/s and FLOP/s
 HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 #: base composition (A, C, G, T) of the synthetic reads: GC ~0.36, about
 #: 0.30 all-context candidate sites per base, a plant genome's density
 PLANT = (0.32, 0.18, 0.18, 0.32)
 SITE_BATCH = 8192
+CONTEXTS = ("CpG", "CHG", "CHH")
 
 
 def fail(msg: str) -> int:
@@ -80,6 +91,21 @@ def cuda_ms(fn, iters=50):
     return a.elapsed_time(b) / iters
 
 
+def feature_table(rng, n_cols, dev):
+    """An (8, n_cols) table featurized on the card from random planes of
+    plant composition, with the engine's zero-feature margin at the start
+    (which padded groups, base 0, read)."""
+    import numpy as np
+    import torch
+    from hifimeth_tpu_torch.features.windows import featurize_planes_t
+    planes = np.empty((5, n_cols), np.uint8)
+    planes[0] = rng.choice(4, n_cols, p=PLANT)
+    planes[1:] = rng.integers(0, 256, (4, n_cols))
+    planes[0, :401] = 255
+    planes[1:, :401] = 0
+    return featurize_planes_t(torch.from_numpy(planes).to(dev))
+
+
 def gather_plan(rng, n_sites, lo, hi, n_cols, ng_multiple):
     """A real plan from the port's planner for n_sites sorted distinct
     window starts in [lo, hi), 128-aligned as the engine aligns it, padded
@@ -100,8 +126,8 @@ def gather_plan(rng, n_sites, lo, hi, n_cols, ng_multiple):
     return b128, rels.astype(np.int32)
 
 
-def phase_kernels():
-    """Kernel vs plain version (bit-exact) and timings; returns the
+def phase_gather():
+    """group_windows_t vs plain version (bit-exact) and timings; returns the
     kernel's JSON row without `launches`."""
     import numpy as np
     import torch
@@ -187,6 +213,96 @@ def phase_kernels():
             "library_ms": library_ms}
 
 
+def phase_fused():
+    """fused_forward vs plain version within 2e-3 logits and +-1 u8, and
+    timings; returns the kernel's JSON row without `launches`."""
+    import numpy as np
+    import torch
+    from hifimeth_tpu_torch.engine.call import default_model_dir
+    from hifimeth_tpu_torch.features.windows import call_sites_group
+    from hifimeth_tpu_torch.model.cnn import (exact_float32, load_model_npz,
+                                              logits_to_scaled_probs)
+    from hifimeth_tpu_torch.ops.fused import (fused_forward,
+                                              fused_forward_plain,
+                                              prepare_fused_params)
+    from hifimeth_tpu_torch.ops.gather import GROUP
+    exact_float32()                     # the plain version's cuDNN in f32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    n_cols = 1 << 21
+    ng = SITE_BATCH // GROUP
+    table = feature_table(rng, n_cols, dev)
+    odd_cols = 5003
+    odd_table = feature_table(rng, odd_cols, dev)
+    main = gather_plan(rng, SITE_BATCH - 200, n_cols - 602 - 27000,
+                       n_cols - 602, n_cols, ng)
+    sparse = gather_plan(rng, 500, 401, n_cols - 602, n_cols, 1)
+    odd = gather_plan(rng, 300, 0, odd_cols - 602, odd_cols, 1)
+    models, weights = {}, {}
+    for ctx in ("CpG", "CHH"):          # conv1 K=11 and K=13
+        models[ctx] = load_model_npz(
+            os.path.join(default_model_dir(), f"{ctx}.npz"), dev)
+        weights[ctx] = prepare_fused_params(models[ctx], dev)
+
+    max_err, max_du8, n_checked = 0.0, 0, 0
+    for ctx, w in weights.items():
+        for tab, (b, r) in ((table, main), (table, sparse), (odd_table, odd)):
+            bd = torch.from_numpy(b).to(dev)
+            rd = torch.from_numpy(r).to(dev)
+            for rev in (False, True):
+                got = fused_forward(w, tab, bd, rd, rev=rev)
+                want = fused_forward_plain(w, tab, bd, rd, rev)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                du8 = (logits_to_scaled_probs(got).int()
+                       - logits_to_scaled_probs(want).int()).abs().max().item()
+                max_err, max_du8 = max(max_err, err), max(max_du8, du8)
+                if not (err <= 2e-3 and du8 <= 1):
+                    raise AssertionError(
+                        f"fused_forward != plain ({ctx}, rev={rev}, {len(b)} "
+                        f"groups): max |logit err| {err}, max |u8 diff| {du8}")
+                n_checked += 1
+    print(f"[kernels] fused_forward within tolerance of plain in {n_checked} "
+          f"cases (K=11/13 x fwd/rev x main/split/unaligned plans): max "
+          f"|logit err| {max_err:.3g} (<= 2e-3), max |u8 diff| {max_du8}")
+
+    b, r = main
+    bd, rd = torch.from_numpy(b).to(dev), torch.from_numpy(r).to(dev)
+    n_sites = len(b) * GROUP
+    times = {}
+    for ctx, w in weights.items():
+        for rev in (False, True):
+            times[ctx, rev] = cuda_ms(
+                lambda: fused_forward(w, table, bd, rd, rev=rev), iters=10)
+    w = weights["CpG"]
+    plain_ms = cuda_ms(lambda: fused_forward_plain(w, table, bd, rd, False),
+                       iters=5)
+    # yardstick: the pallas path's device work for the same sites (gather
+    # kernel + cuDNN CNN in f32 + u8 conversion), several calls composed
+    library_ms = cuda_ms(lambda: call_sites_group(models["CpG"], table, bd,
+                                                  rd, False), iters=5)
+    flops = w.flops_per_window() * n_sites
+    moved = (w.buf.numel() * 4 + n_sites * 2 * 4 + b.nbytes + r.nbytes
+             + 8 * 4 * (int(b.max()) + 2048 - int(b[b > 0].min())))
+    bound_ms = max(flops / FP32_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
+    for ctx in weights:
+        print(f"[kernels] fused_forward {ctx} at {n_sites} sites: fwd "
+              f"{times[ctx, False]:.4f} ms, rev {times[ctx, True]:.4f} ms, "
+              f"FLOP bound {weights[ctx].flops_per_window() * n_sites / FP32_FLOPS * 1e3:.4f} ms "
+              f"({weights[ctx].flops_per_window()} FLOP/window at 67 TFLOP/s)")
+    print(f"[kernels] fused_forward CpG: plain {plain_ms:.4f} ms, yardstick "
+          f"(group_windows_t + cuDNN CNN + u8) {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (operations; bytes {moved} B = "
+          f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return {"name": "fused_forward", "route": "cuda",
+            "source": "hifimeth_tpu_torch/ops/csrc/fused_forward.cu",
+            "replaces": "hifimeth_tpu/ops/fused.py:373",
+            "max_abs_err": max_err, "ms": times["CpG", False],
+            "rev_ms": times["CpG", True], "chh_ms": times["CHH", False],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": library_ms}
+
+
 def read_tags(path):
     from hifimeth_tpu_torch.io.bam import BamReader
     out = []
@@ -197,6 +313,68 @@ def read_tags(path):
     return out
 
 
+def compare(path_a, path_b, label):
+    """Parity contract between two outputs: same records in order, MM/MN
+    byte-equal, ML within +-1 with at most 5% of ML bytes off."""
+    import numpy as np
+    a, b = read_tags(path_a), read_tags(path_b)
+    if [x[0] for x in a] != [x[0] for x in b]:
+        raise AssertionError(f"{label}: records differ in order")
+    n_off = n_tot = max_d = 0
+    for (q, mm, ml, mn), (_, mm2, ml2, mn2) in zip(a, b):
+        if mm != mm2 or mn != mn2 or (ml is None) != (ml2 is None):
+            raise AssertionError(f"{label}: {q}: MM/MN differ")
+        if ml is None:
+            continue
+        if len(ml) != len(ml2):
+            raise AssertionError(f"{label}: {q}: ML lengths differ")
+        d = np.abs(ml.astype(int) - ml2.astype(int))
+        max_d = max(max_d, int(d.max()) if len(d) else 0)
+        n_off += int((d > 0).sum())
+        n_tot += len(d)
+    print(f"[{label}] {len(a)} reads, {n_tot} ML bytes: MM/MN equal, "
+          f"{n_off} ML bytes off, max |diff| {max_d}")
+    if n_tot == 0 or max_d > 1 or n_off > 0.05 * n_tot:
+        raise AssertionError(f"{label}: ML max |diff| {max_d}, {n_off} of "
+                             f"{n_tot} bytes off (contract: +-1, <= 5%)")
+
+
+def run_main(big, out, impl, td):
+    """One main-path run of `call` with gather_impl `impl`; every kernel's
+    count is set to 0 just before it and read just after.  Returns the
+    launch counts."""
+    import torch
+    from hifimeth_tpu_torch.engine.call import CallConfig, run_call
+    from hifimeth_tpu_torch.ops import fused, gather
+    stats_json = os.path.join(td, f"stats.{impl}.json")
+    gather.group_windows_t.launches = 0
+    fused.fused_forward.launches = 0
+    t0 = time.perf_counter()
+    stats = run_call(big, out, CallConfig(device="cuda", gather_impl=impl,
+                                          stats_json=stats_json))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"group_windows_t": gather.group_windows_t.launches,
+                "fused_forward": fused.fused_forward.launches}
+    n_sites = sum(stats[c] for c in CONTEXTS)
+    with open(stats_json) as f:
+        timers = json.load(f)["timers"]
+    print(f"[main {impl}] {stats['reads']} reads, {stats['bases']} bases, "
+          f"{n_sites} sites ({', '.join(f'{c} {stats[c]}' for c in CONTEXTS)})"
+          f" in {secs:.3f} s = {n_sites / secs:.1f} sites/s; launches "
+          f"{launches}")
+    print(f"[main {impl}] engine timers (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timers.items()))
+    recs = read_tags(out)
+    n_ml = sum(len(ml) for _, _, ml, _ in recs if ml is not None)
+    if len(recs) != 200 or any(mm is None for _, mm, _, _ in recs):
+        raise AssertionError(f"{impl} main path output lacks records or MM")
+    if n_ml != n_sites:
+        raise AssertionError(f"{impl}: ML holds {n_ml} probabilities for "
+                             f"{n_sites} sites")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -204,9 +382,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hifimeth_tpu_torch")):
         return fail("hifimeth_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, ROOT)
-    import numpy as np
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
-    from hifimeth_tpu_torch.ops import build, gather
+    from hifimeth_tpu_torch.ops import build
 
     # -- phase 1: card, versions, builds ---------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -220,76 +397,60 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        k_fut = pool.submit(build.kernel_library, "group_windows")
+    kernels = ("group_windows", "fused_forward")
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        k_futs = {k: pool.submit(build.kernel_library, k) for k in kernels}
         b_fut = pool.submit(build.bamcore_library)
-        kernel_lib, bamcore_lib = k_fut.result(), b_fut.result()
+        libs = {k: f.result() for k, f in k_futs.items()}
+        bamcore_lib = b_fut.result()
     if bamcore_lib is None:
         return fail("libbamcore did not build")
-    print(f"[build] kernel + libbamcore in {time.perf_counter() - t0:.2f} s")
-    print("[build] " + "\n[build] ".join(
-        l for l in build.build_log(kernel_lib).splitlines() if "ptxas" in l))
+    print(f"[build] {len(kernels)} kernels + libbamcore in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for k, lib in libs.items():
+        print(f"[build {k}] " + f"\n[build {k}] ".join(
+            l.strip() for l in build.build_log(lib).splitlines()
+            if "ptxas" in l or "spill" in l))
 
     # -- phase 2: kernels against their plain versions -------------------
-    row = phase_kernels()
+    rows = [phase_gather(), phase_fused()]
 
     with tempfile.TemporaryDirectory() as td:
         small, big = os.path.join(td, "small.bam"), os.path.join(td, "big.bam")
         make_bam(small, 4, 4000, seed=1)
         make_bam(big, 200, 15000, seed=0)
         # warm-up + the card side of phase 4 (cuDNN picks its algorithms)
-        run_call(small, os.path.join(td, "small.cuda.bam"),
-                 CallConfig(device="cuda"))
+        for impl in ("pallas", "fused"):
+            run_call(small, os.path.join(td, f"small.{impl}.cuda.bam"),
+                     CallConfig(device="cuda", gather_impl=impl))
 
-        # -- phase 3: the main path --------------------------------------
-        stats_json = os.path.join(td, "stats.json")
-        gather.group_windows_t.launches = 0
-        t0 = time.perf_counter()
-        stats = run_call(big, os.path.join(td, "big.out.bam"),
-                         CallConfig(device="cuda", stats_json=stats_json))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = gather.group_windows_t.launches
-        n_sites = sum(stats[c] for c in ("CpG", "CHG", "CHH"))
-        with open(stats_json) as f:
-            timers = json.load(f)["timers"]
-        print(f"[main] {stats['reads']} reads, {stats['bases']} bases, "
-              f"{n_sites} sites ({', '.join(f'{c} {stats[c]}' for c in ('CpG', 'CHG', 'CHH'))})"
-              f" in {secs:.3f} s = {n_sites / secs:.1f} sites/s; "
-              f"group_windows_t launches {launches}")
-        print("[main] engine timers (s): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in timers.items()))
-        if launches <= 0:
-            return fail("the main path launched group_windows_t no time")
-        recs = read_tags(os.path.join(td, "big.out.bam"))
-        n_ml = sum(len(ml) for _, _, ml, _ in recs if ml is not None)
-        if len(recs) != 200 or any(mm is None for _, mm, _, _ in recs):
-            return fail("main path output lacks records or MM tags")
-        if n_ml != n_sites:
-            return fail(f"ML holds {n_ml} probabilities for {n_sites} sites")
+        # -- phase 3: the main paths -------------------------------------
+        launches = {}
+        for impl, kernel in (("pallas", "group_windows_t"),
+                             ("fused", "fused_forward")):
+            got = run_main(big, os.path.join(td, f"big.{impl}.bam"), impl, td)
+            if got[kernel] <= 0:
+                return fail(f"the {impl} path launched {kernel} no time")
+            other = sum(v for k, v in got.items() if k != kernel)
+            if other:
+                return fail(f"the {impl} path launched another kernel "
+                            f"({got})")
+            launches[kernel] = got[kernel]
 
-        # -- phase 4: card vs CPU ----------------------------------------
-        run_call(small, os.path.join(td, "small.cpu.bam"),
-                 CallConfig(device="cpu", site_batch=512))
-        a = read_tags(os.path.join(td, "small.cuda.bam"))
-        b = read_tags(os.path.join(td, "small.cpu.bam"))
-        if [x[0] for x in a] != [x[0] for x in b]:
-            return fail("card and CPU records differ in order")
-        n_off = n_tot = max_d = 0
-        for (q, mm, ml, mn), (_, mm2, ml2, mn2) in zip(a, b):
-            if mm != mm2 or mn != mn2 or len(ml) != len(ml2):
-                return fail(f"{q}: MM/MN differ between card and CPU")
-            d = np.abs(ml.astype(int) - ml2.astype(int))
-            max_d = max(max_d, int(d.max()))
-            n_off += int((d > 0).sum())
-            n_tot += len(d)
-        print(f"[cuda-vs-cpu] {len(a)} reads, {n_tot} ML bytes: MM/MN equal, "
-              f"{n_off} ML bytes off, max |diff| {max_d}")
-        if max_d > 1:
-            return fail(f"ML differs by {max_d} > 1 between card and CPU")
+        # -- phase 4: parity ---------------------------------------------
+        compare(os.path.join(td, "big.fused.bam"),
+                os.path.join(td, "big.pallas.bam"), "fused-vs-pallas")
+        for impl in ("pallas", "fused"):
+            run_call(small, os.path.join(td, f"small.{impl}.cpu.bam"),
+                     CallConfig(device="cpu", site_batch=512,
+                                gather_impl=impl))
+            compare(os.path.join(td, f"small.{impl}.cuda.bam"),
+                    os.path.join(td, f"small.{impl}.cpu.bam"),
+                    f"cuda-vs-cpu {impl}")
 
-    row["launches"] = launches
-    print(json.dumps({"kernels": [row]}))
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -297,4 +458,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as e:          # any phase's failure: no result line
+        import traceback
+        traceback.print_exc()
+        sys.exit(fail(f"{type(e).__name__}: {e}"))

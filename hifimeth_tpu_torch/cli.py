@@ -48,7 +48,10 @@ OPTIONS:
   --buffer-bases INT   packed plane-buffer capacity (default 2097152)
   --flush-bases INT    dispatch granularity in bases (0 = capacity)
   --stats-json PATH    write run stats as JSON
-  --device {{cuda,cpu}}  where the model runs (default cuda)"""
+  --device {{cuda,cpu}}  where the model runs (default cuda)
+  --gather-impl {{auto,pallas,fused}}  per-site device path: the window
+                       gather kernel + CNN (auto = pallas), or one fused
+                       kernel for both (default auto)"""
 
 
 def _parse_call(argv):
@@ -95,6 +98,11 @@ def _parse_call(argv):
                 raise SystemExit(f"Illegal argument to option '--device': "
                                  f"{argv[i + 1]} (expected cuda|cpu)")
             kw["device"] = argv[i + 1]
+        elif a == "--gather-impl":
+            if argv[i + 1] not in ("auto", "pallas", "fused"):
+                raise SystemExit(f"Illegal argument to option '--gather-impl'"
+                                 f": {argv[i + 1]} (expected auto|pallas|fused)")
+            kw["gather_impl"] = argv[i + 1]
         elif a.startswith("-") and len(a) > 1:
             raise SystemExit(f"ERROR: unrecognised option {a}")
         else:
@@ -137,6 +145,7 @@ def main(argv=None) -> int:
         "contexts": ",".join(cfg.contexts),
         "io_threads": cfg.io_threads,
         "device": cfg.device,
+        "gather_impl": cfg.gather_impl,
         "input": pos[0],
         "output": pos[1],
     })

@@ -5,9 +5,10 @@ run on a GPU.  Reads are decoded and packed host-side into a flat (5, cap)
 u8 plane buffer; each flush ships the buffer's filled prefix to the device
 once, featurizes it once into an (8, cap) table (amortized over the ~100
 overlapping windows per base), plans position-sorted sites into groups, and
-calls every candidate site of a context in fixed-size batches through the
-window-gather kernel and the context's CNN.  Output records keep input
-order.
+calls every candidate site of a context in fixed-size batches: through the
+window-gather kernel and the context's CNN (`gather_impl` "pallas", the
+default), or through the fused kernel that runs gather and CNN per site in
+one launch ("fused").  Output records keep input order.
 
 Behavioral parity with the reference:
  - reads shorter than min_read_size or without kinetics pass through
@@ -40,6 +41,8 @@ from ..io import native
 from ..io.bam import BamReader, BamRecord, BamWriter
 from ..io.mmtags import build_mod_tags
 from ..model.cnn import exact_float32, load_model_npz
+from ..ops.fused import KMER as FUSED_KMER
+from ..ops.fused import call_sites_fused, prepare_fused_params
 from ..ops.gather import (BLOCK_LANES, GROUP, PLAN_EXTENT, check_plan,
                           plan_groups)
 from ..utils.logging import bytes_to_datasize, format_with_commas, log
@@ -68,6 +71,8 @@ class CallConfig:
     io_threads: int = 8                  # BGZF codec pool (sam_batch.hpp:19)
     stats_json: str = ""                 # write machine-readable run stats
     device: str = "cuda"                 # "cuda" or "cpu"
+    gather_impl: str = "auto"            # "auto" (= "pallas"): gather kernel
+                                         # + CNN; "fused": one kernel for both
 
     def resolve_model_dir(self) -> str:
         return self.model_dir or default_model_dir()
@@ -81,21 +86,48 @@ class _PendingRead:
     site_slices: dict = field(default_factory=dict)
 
 
-class ModelSet:
-    """Per-context DNAModNet modules on the device, plus the window size."""
+#: the JAX package's XLA gather paths, which have no kernel in the port yet
+_NOT_YET_PORTED_GATHERS = ("slice", "folded")
 
-    def __init__(self, model_dir: str, contexts, device: torch.device):
+
+def resolve_gather_impl(name: str) -> str:
+    """"auto" -> "pallas"; raises ValueError for anything but pallas/fused."""
+    if name == "auto":
+        return "pallas"
+    if name in _NOT_YET_PORTED_GATHERS:
+        raise ValueError(f"gather_impl {name!r} is not yet ported to the "
+                         f"PyTorch package; choose auto, pallas, or fused")
+    if name not in ("pallas", "fused"):
+        raise ValueError(f"unknown gather_impl {name!r}; choose auto, slice, "
+                         f"folded, pallas, or fused")
+    return name
+
+
+class ModelSet:
+    """Per-context DNAModNet modules on the device, plus the window size;
+    with `fused`, each context's weights also packed for the fused kernel."""
+
+    def __init__(self, model_dir: str, contexts, device: torch.device,
+                 fused: bool = False):
         self.models = {}
+        self.fused = {}
         self.kmer = KMER_SIZE
         kmer_path = os.path.join(model_dir, "kmer.txt")
         if os.path.exists(kmer_path):
             with open(kmer_path) as f:
                 self.kmer = int(f.read().strip())
+        if fused and self.kmer != FUSED_KMER:
+            raise ValueError(
+                f"gather_impl=fused supports kmer={FUSED_KMER} only (model "
+                f"dir declares kmer={self.kmer}); use gather_impl=pallas")
         for ctx in contexts:
             path = os.path.join(model_dir, f"{ctx}.npz")
             if not os.path.exists(path):
                 raise FileNotFoundError(f"model file {path} not found")
             self.models[ctx] = load_model_npz(path, device)
+            if fused:
+                self.fused[ctx] = prepare_fused_params(self.models[ctx],
+                                                       device, self.kmer)
             log("loaded %s model from %s (kmer=%d)", ctx, path, self.kmer)
 
 
@@ -108,7 +140,8 @@ class CallEngine:
         # never mutated.  A 128-multiple capacity keeps the planner's
         # 128-lane aligned bases inside the table.
         cfg = dataclasses.replace(
-            cfg, buffer_bases=-(-cfg.buffer_bases // 128) * 128)
+            cfg, buffer_bases=-(-cfg.buffer_bases // 128) * 128,
+            gather_impl=resolve_gather_impl(cfg.gather_impl))
         if cfg.site_batch < GROUP or cfg.site_batch % GROUP:
             raise ValueError(f"site_batch must be a positive multiple of "
                              f"{GROUP}, got {cfg.site_batch}")
@@ -117,7 +150,7 @@ class CallEngine:
         if self.device.type == "cuda":
             exact_float32()
         self.models = ModelSet(cfg.resolve_model_dir(), cfg.contexts,
-                               self.device)
+                               self.device, fused=cfg.gather_impl == "fused")
         self.kmer = self.models.kmer
         self._inflight = None
         self.stats = {ctx: 0 for ctx in cfg.contexts}
@@ -265,9 +298,9 @@ class CallEngine:
         """Plan groups of GROUP position-sorted sites whose windows fit one
         block and call them; returns (n_sites, streams, order).
 
-        Reverse-strand sites (CHH) run as a separate stream through the
-        kernel's reverse mode, so no per-site strand vector reaches the
-        device."""
+        Reverse-strand sites run as a separate stream through the kernels'
+        reverse mode, so no per-site strand vector reaches the device.  The
+        gather and fused paths share this plan."""
         centers = (np.concatenate(s["centers"]) if s["centers"]
                    else np.empty(0, np.int32))
         n = len(centers)
@@ -288,7 +321,16 @@ class CallEngine:
 
         n_rows = self.cfg.buffer_bases
         ngrp = self.cfg.site_batch // GROUP
-        model = self.models.models[ctx]
+        if self.cfg.gather_impl == "fused":
+            weights = self.models.fused[ctx]
+
+            def call(b, r, rev):
+                return call_sites_fused(weights, table, b, r, rev)
+        else:
+            model = self.models.models[ctx]
+
+            def call(b, r, rev):
+                return call_sites_group(model, table, b, r, rev, self.kmer)
         results = []
         for sel, rev in streams:
             cs = c_s if sel is None else c_s[sel]
@@ -316,10 +358,8 @@ class CallEngine:
                 rels = np.concatenate([rels, np.zeros((pad_g, GROUP), np.int32)])
             bases_d = torch.from_numpy(b128).to(self.device)
             rels_d = torch.from_numpy(np.ascontiguousarray(rels)).to(self.device)
-            parts = [call_sites_group(model, table,
-                                      bases_d[b * ngrp:(b + 1) * ngrp],
-                                      rels_d[b * ngrp:(b + 1) * ngrp],
-                                      rev, self.kmer)
+            parts = [call(bases_d[b * ngrp:(b + 1) * ngrp],
+                          rels_d[b * ngrp:(b + 1) * ngrp], rev)
                      for b in range(nb)]
             probs = torch.cat(parts)
             if self.device.type == "cuda":
@@ -465,5 +505,6 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
                        "timers": engine.timers,
                        "config": {"contexts": list(cfg.contexts),
                                   "site_batch": cfg.site_batch,
+                                  "gather_impl": engine.cfg.gather_impl,
                                   "device": str(engine.device)}}, f, indent=1)
     return s

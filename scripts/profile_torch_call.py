@@ -3,15 +3,19 @@
 
 Runs the port's run_call on the chip_smoke.py main-path input (200 reads x
 15 kb, random seed-0 kinetics, shipped models, default batch and buffer
-sizes), once plain to time it and once under torch.profiler, and prints:
+sizes) through one per-site path (--gather-impl: "pallas", the gather
+kernel + cuDNN CNN, or "fused", the fused kernel), once plain to time it and
+once under torch.profiler, and prints:
  - wall seconds and sites/s of the plain run;
- - device time by kernel class (the gather kernel, convolutions, matrix
-   products, elementwise/other kernels, memory copies), summed over the
-   profiled run, and the device's busy share of that run's wall time.
+ - device time by kernel class (the gather kernel, the fused kernel,
+   convolutions, matrix products, elementwise/other kernels, memory
+   copies), summed over the profiled run, and the device's busy share of
+   that run's wall time.
 
 Usage (on a machine with a CUDA device):
-    python3 scripts/profile_torch_call.py [--out DIR]
-With --out, the JSON summary is also written to DIR/profile_summary.json.
+    python3 scripts/profile_torch_call.py [--gather-impl pallas|fused] [--out DIR]
+With --out, the JSON summary is also written to
+DIR/profile_summary.<gather-impl>.json.
 """
 import argparse
 import json
@@ -29,6 +33,8 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "group_windows" in n:
         return "gather kernel"
+    if "fused_forward" in n:
+        return "fused kernel"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"
     if "conv" in n or "xmma_fprop" in n or "implicit" in n or "cudnn" in n:
@@ -41,6 +47,8 @@ def kernel_class(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--gather-impl", default="pallas",
+                    choices=("pallas", "fused"))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
@@ -57,24 +65,25 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
+    cfg = CallConfig(gather_impl=args.gather_impl)
     with tempfile.TemporaryDirectory() as td:
         small, big = os.path.join(td, "small.bam"), os.path.join(td, "big.bam")
         make_bam(small, 4, 4000, seed=1)
         make_bam(big, 200, 15000, seed=0)
         out = os.path.join(td, "out.bam")
-        run_call(small, out, CallConfig())                 # warm-up
+        run_call(small, out, cfg)                          # warm-up
         t0 = time.perf_counter()
-        stats = run_call(big, out, CallConfig())
+        stats = run_call(big, out, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         sites = sum(stats[c] for c in ("CpG", "CHG", "CHH"))
-        print(f"[plain run] {sites} sites in {wall:.3f} s = "
+        print(f"[plain run, {args.gather_impl}] {sites} sites in {wall:.3f} s = "
               f"{sites / wall:.1f} sites/s")
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_call(big, out, CallConfig())
+            run_call(big, out, cfg)
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t0
 
@@ -97,13 +106,14 @@ def main() -> int:
     print("  top kernels:")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:10.3f} ms  {name[:110]}")
-    summary = {"card": card, "sites": sites, "wall_s": wall,
+    summary = {"card": card, "gather_impl": args.gather_impl, "sites": sites, "wall_s": wall,
                "sites_per_s": sites / wall, "profiled_wall_s": pwall,
                "device_busy_s": busy_us / 1e6,
                "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()}}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_summary.json"), "w") as f:
+        with open(os.path.join(args.out, f"profile_summary."
+                               f"{args.gather_impl}.json"), "w") as f:
             json.dump(summary, f, indent=1)
     print(json.dumps(summary))
     return 0

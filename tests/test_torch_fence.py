@@ -1,5 +1,6 @@
-"""The port stands alone: no module of hifimeth_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package, and the GPU is never
+"""The port stands alone: no module of hifimeth_tpu_torch, and neither
+chip_smoke.py nor the port's profiling scripts, imports jax or the JAX
+package, and the GPU is never
 replaced by the CPU behind the caller's back."""
 import os
 import re
@@ -42,7 +43,9 @@ def test_no_jax_import_statement_anywhere():
     """Lazy imports inside functions never run in the subprocess above;
     a source scan catches them."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|hifimeth_tpu)(\.|\s|$)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "scripts", f) for f in (
+            "profile_torch_call.py", "profile_fused_layers.py")]
     for d, dirs, fs in os.walk(PKG):
         dirs[:] = [x for x in dirs if x != "_build"]     # build outputs
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
