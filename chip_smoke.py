@@ -5,25 +5,34 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line is printed):
  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-    build of every kernel (in parallel) and of the host I/O core from this
-    checkout, with each kernel's ptxas report;
+    build of every kernel library (in parallel) and of the host I/O core
+    from this checkout, with each library's ptxas report;
  2. every kernel against its plain PyTorch version on the card, timed at
-    the main path's shape (8192 sites) beside its bound and a PyTorch
-    yardstick computing the same function: group_windows_t bit-exact;
-    fused_forward within 2e-3 logits and +-1 u8, for the K=11 (CpG) and
-    K=13 (CHH) models, forward and reverse, on main (clipped bases, padded
-    groups), greedy-split and odd-width plans;
- 3. the main paths: all-context `call` through the port's run_call at the
-    shipped models' full width, over ~200 reads x 15 kb (~0.9 M sites), once
-    per gather_impl ("pallas": group_windows_t + cuDNN CNN; "fused":
-    fused_forward), each with every kernel's launch count set to 0 just
-    before it and read just after;
+    its path's shape beside its bound and a PyTorch yardstick computing
+    the same function: group_windows_t bit-exact and fused_forward within
+    2e-3 logits and +-1 u8 at the call path's 8192 sites (K=11 (CpG) and
+    K=13 (CHH) models, forward and reverse, main (clipped bases, padded
+    groups), greedy-split and odd-width plans); group_windows,
+    window_slices and window_rows bit-exact at the microbenchmark's 16384
+    sites over a (4 Mi, 8) table (greedy-split plans, starts at the last
+    legal row, odd row counts, 3-channel and misaligned tables, spp 8 and
+    64, mixed strands, and one out-of-contract clamp case each);
+ 3. the main paths, each with every kernel's launch count set to 0 just
+    before it and read just after: all-context `call` through the port's
+    run_call at the shipped models' full width, over ~200 reads x 15 kb
+    (~0.9 M sites), once per gather_impl ("pallas": group_windows_t +
+    cuDNN CNN; "fused": fused_forward; "slice" and "folded": indexing
+    gathers + cuDNN CNN, which launch no hand kernel), and the window-fetch
+    microbenchmark (scripts/microbench_torch_gather.py, every variant, 2
+    batches), which launches group_windows, window_slices and
+    group_windows_t;
  4. outputs held to the parity contract (MM/MN byte-equal, ML within +-1,
-    at most 5% of ML bytes off): fused against pallas on the card over the
-    big input, and the card against the port's CPU run on a small input,
-    for both paths.
+    at most 5% of ML bytes off): fused against pallas, slice against
+    pallas and folded against slice on the card over the big input, and
+    the card against the port's CPU run on a small input, for every path.
 The line before the last is a JSON object {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}.
+is {"ok": true, "device": {...}}.  window_rows lies on no path of the
+repository: its `launches` are its phase-2 launches.
 """
 import json
 import os
@@ -44,6 +53,10 @@ FP32_FLOPS = 67e12
 PLANT = (0.32, 0.18, 0.18, 0.32)
 SITE_BATCH = 8192
 CONTEXTS = ("CpG", "CHG", "CHH")
+#: the window-fetch microbenchmark's shape (scripts/microbench_torch_gather.py)
+MICRO_SITES = 16384
+MICRO_ROWS = 1 << 22
+GATHER_IMPLS = ("pallas", "fused", "slice", "folded")
 
 
 def fail(msg: str) -> int:
@@ -303,6 +316,222 @@ def phase_fused():
             "bound_by": "operations", "library_ms": library_ms}
 
 
+def covered_rows(starts, n, n_rows, step=1):
+    """Distinct rows of an n_rows table that windows of n rows taken every
+    `step` rows from `starts` read."""
+    import numpy as np
+    need = np.zeros(n_rows, bool)
+    need[(starts.astype(np.int64)[:, None]
+          + step * np.arange(n)).ravel()] = True
+    return int(need.sum())
+
+
+def odd_tables(rng, n_rows, dev):
+    """Tables that take the kernels' scalar path: 3 channels, and 8
+    channels whose data pointer is 4 bytes off 16-byte alignment; both with
+    a row count that is not a multiple of 4."""
+    import numpy as np
+    import torch
+    narrow = torch.from_numpy(
+        rng.standard_normal((n_rows, 3), dtype=np.float32)).to(dev)
+    flat = torch.from_numpy(
+        rng.standard_normal(n_rows * 8 + 1, dtype=np.float32)).to(dev)
+    shifted = flat[1:].view(n_rows, 8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    return {"3-channel": narrow, "misaligned": shifted}
+
+
+def check_equal(label, got, want):
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = ((got - want).abs().max().item() if got.shape == want.shape
+               else float("inf"))
+        raise AssertionError(f"{label}: kernel != plain, max |err| {err}")
+
+
+def phase_row_windows():
+    """group_windows, window_slices and window_rows against their plain
+    versions (bit-exact) at the window-fetch microbenchmark's shape, plus
+    odd tables and out-of-contract starts, and timings; returns the three
+    kernels' JSON rows without `launches`."""
+    import numpy as np
+    import torch
+    from hifimeth_tpu_torch.ops import gather as G
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    kmer, n, b = 401, MICRO_ROWS, MICRO_SITES
+    group, block, fetch = 32, 1024, 2 * 401
+    feats = torch.from_numpy(
+        rng.standard_normal((n, 8), dtype=np.float32)).to(dev)
+    feats_r = torch.from_numpy(
+        rng.standard_normal((n, 8), dtype=np.float32)).to(dev)
+    n_odd = 5003
+    odd = odd_tables(rng, n_odd, dev)
+    odd_r = odd_tables(rng, n_odd, dev)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    # -- group_windows: the microbenchmark's plan (sorted starts ~2.5 rows
+    # apart from row kmer), the same density ending at the last legal row
+    # (bases clipped to n - block), a greedy-split plan (real idx), odd
+    # tables, and out-of-contract bases and rels
+    def dense_starts(first, count):
+        return (first + np.cumsum(rng.integers(1, 5, count))).astype(np.int32)
+
+    def plan(starts, n_rows, split=None):
+        bases, rels, idx = G.plan_groups(np.sort(starts), group, block, kmer,
+                                         n_rows)
+        if split is not None and (idx is not None) != split:
+            raise AssertionError(f"plan_groups: split {idx is not None}")
+        return bases, rels
+
+    micro = plan(dense_starts(kmer, b), n, split=False)
+    tail = dense_starts(0, b)
+    gplans = {
+        "microbenchmark": (feats, micro),
+        "last-row": (feats, plan(tail + (n - kmer - int(tail[-1])), n,
+                                 split=False)),
+        "greedy-split": (feats, plan(np.concatenate([
+            rng.integers(0, n - kmer + 1, 3000),
+            dense_starts(n // 2, 1000)]).astype(np.int32), n, split=True)),
+    }
+    for name, t in odd.items():
+        gplans[name] = (t, plan(rng.integers(0, n_odd - kmer + 1, 300)
+                                .astype(np.int32), n_odd))
+    cb = np.array([-7, n - block + 5, 100, 1 << 30], np.int32)
+    cr = rng.integers(0, block - kmer + 1, (4, group))
+    cr[:, :3] = (-3, block - kmer + 1, 1 << 20)
+    gplans["clamp"] = (feats, (cb, cr.astype(np.int32)))
+    for name, (t, (bases, rels)) in gplans.items():
+        bd, rd = i32(bases), i32(rels)
+        check_equal(f"group_windows ({name})",
+                    G.group_windows(t, bd, rd, group, block, kmer),
+                    G.group_windows_plain(t, bd, rd, group, block, kmer))
+    print(f"[kernels] group_windows bit-exact vs plain in {len(gplans)} "
+          f"cases ({', '.join(gplans)})")
+
+    # -- window_slices: random starts with the first and last legal ones,
+    # spp 8 and 64, odd tables, out-of-contract starts
+    starts = rng.integers(0, n - kmer + 1, b).astype(np.int32)
+    starts[:2] = (0, n - kmer)
+    sd = i32(starts)
+    clamp = np.array([-5, -1000, n - kmer + 1, 1 << 30, 7, 0, 3, 9] * 8,
+                     np.int32)
+    scases = {f"spp {spp}": (feats, sd, spp) for spp in (8, 64)}
+    for name, t in odd.items():
+        scases[name] = (t, i32(rng.integers(0, n_odd - kmer + 1, 64)), 8)
+    scases["clamp"] = (feats, i32(clamp), 64)
+    for name, (t, s, spp) in scases.items():
+        check_equal(f"window_slices ({name})",
+                    G.window_slices(t, s, kmer, spp=spp),
+                    G.window_slices_plain(t, s, kmer))
+    print(f"[kernels] window_slices bit-exact vs plain in {len(scases)} "
+          f"cases ({', '.join(scases)})")
+
+    # -- window_rows: random starts with the last legal one, mixed strands
+    # (and all forward, all reverse), odd tables, out-of-contract starts
+    G.window_rows.launches = 0
+    rstarts = rng.integers(0, n - fetch + 1, b).astype(np.int32)
+    rstarts[:2] = (0, n - fetch)
+    rs = i32(rstarts)
+    is_rev = rng.integers(0, 2, b).astype(np.int32)
+    rv = i32(is_rev)
+    rcases = {"mixed": (feats, feats_r, rs, rv),
+              "forward": (feats, feats_r, rs, torch.zeros_like(rv)),
+              "reverse": (feats, feats_r, rs, torch.ones_like(rv))}
+    for name, t in odd.items():
+        rcases[name] = (t, odd_r[name],
+                        i32(rng.integers(0, n_odd - fetch + 1, 64)),
+                        i32(rng.integers(0, 2, 64)))
+    rcases["clamp"] = (feats, feats_r,
+                       i32(np.array([-5, n - fetch + 3, 1 << 30, -1] * 2)),
+                       i32([0, 1, 0, 1, 1, 0, 1, 0]))
+    for name, (d, dr, s, r) in rcases.items():
+        check_equal(f"window_rows ({name})",
+                    G.window_rows(d, dr, s, r, fetch, kmer),
+                    G.window_rows_plain(d, dr, s, r, fetch, kmer))
+    print(f"[kernels] window_rows bit-exact vs plain in {len(rcases)} cases "
+          f"({', '.join(rcases)})")
+
+    # -- timings at the microbenchmark's shape.  The library yardstick is
+    # the faster of two single PyTorch calls over precomputed indices
+    # (index_select of whole rows, torch.take of elements), each checked
+    # equal to the plain version
+    def library(table, rows, n_out, want):
+        flat = rows.reshape(-1)
+        elems = (flat[:, None] * table.shape[1]
+                 + torch.arange(table.shape[1], device=dev)).view(
+                     -1, n_out, table.shape[1])
+        calls = {"index_select": lambda: table.index_select(0, flat),
+                 "torch.take": lambda: torch.take(table, elems)}
+        times = {}
+        for name, fn in calls.items():
+            check_equal(f"{name} yardstick",
+                        fn().view(-1, n_out, table.shape[1]), want)
+            times[name] = cuda_ms(fn, iters=10)
+        best = min(times, key=times.get)
+        return times[best], best, times
+
+    def row(name, line, ms, plain_ms, lib, moved, what):
+        library_ms, library, lib_times = lib
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        print(f"[kernels] {name} at {b} sites over ({n}, 8): {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in lib_times.items())
+              + f", bound {bound_ms:.4f} ms ({moved} B at 3.35 TB/s: {what})")
+        return {"name": name, "route": "cuda",
+                "source": "hifimeth_tpu_torch/ops/csrc/row_windows.cu",
+                "replaces": f"hifimeth_tpu/ops/gather.py:{line}",
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": library_ms, "library": library}
+
+    rows = []
+    out_bytes = b * kmer * 8 * 4
+    bases, rels = micro
+    bd, rd = i32(bases), i32(rels)
+    gstarts = (bases.astype(np.int64)[:, None] + rels).ravel()
+    want = G.group_windows_plain(feats, bd, rd, group, block, kmer)
+    rows.append(row(
+        "group_windows", 197,
+        cuda_ms(lambda: G.group_windows(feats, bd, rd, group, block, kmer)),
+        cuda_ms(lambda: G.group_windows_plain(feats, bd, rd, group, block,
+                                              kmer), iters=10),
+        library(feats, torch.from_numpy(gstarts).to(dev)[:, None]
+                + torch.arange(kmer, device=dev), kmer, want),
+        out_bytes + covered_rows(gstarts, kmer, n) * 32 + bases.nbytes
+        + rels.nbytes, "windows out, distinct rows in, plan"))
+    want = G.window_slices_plain(feats, sd, kmer)
+    rows.append(row(
+        "window_slices", 134,
+        cuda_ms(lambda: G.window_slices(feats, sd, kmer)),
+        cuda_ms(lambda: G.window_slices_plain(feats, sd, kmer), iters=10),
+        library(feats, sd.long()[:, None] + torch.arange(kmer, device=dev),
+                kmer, want),
+        out_bytes + covered_rows(starts, kmer, n) * 32 + starts.nbytes,
+        "windows out, distinct rows in, starts"))
+    want = G.window_rows_plain(feats, feats_r, rs, rv, fetch, kmer)
+    both = torch.cat([feats, feats_r])
+    rev = is_rev.astype(bool)
+    rows.append(row(
+        "window_rows", 81,
+        cuda_ms(lambda: G.window_rows(feats, feats_r, rs, rv, fetch, kmer)),
+        cuda_ms(lambda: G.window_rows_plain(feats, feats_r, rs, rv, fetch,
+                                            kmer), iters=10),
+        library(both, (rs.long() + n * rv.long())[:, None]
+                + 2 * torch.arange(kmer, device=dev), kmer, want),
+        out_bytes + (covered_rows(rstarts[~rev], kmer, n, 2)
+                     + covered_rows(rstarts[rev], kmer, n, 2)) * 32
+        + rstarts.nbytes + is_rev.nbytes,
+        "windows out, distinct rows of both tables in, starts, strands"))
+    rows[-1]["path"] = ("none: no path of the repository calls window_rows; "
+                        "launches are this phase's")
+    rows[-1]["launches"] = G.window_rows.launches
+    return rows
+
+
 def read_tags(path):
     from hifimeth_tpu_torch.io.bam import BamReader
     out = []
@@ -339,23 +568,40 @@ def compare(path_a, path_b, label):
                              f"{n_tot} bytes off (contract: +-1, <= 5%)")
 
 
+def kernel_wrappers():
+    """Every kernel wrapper of the port by kernel name; each carries its
+    launch count in `.launches`."""
+    from hifimeth_tpu_torch.ops import fused, gather
+    return {"group_windows_t": gather.group_windows_t,
+            "fused_forward": fused.fused_forward,
+            "group_windows": gather.group_windows,
+            "window_slices": gather.window_slices,
+            "window_rows": gather.window_rows}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
 def run_main(big, out, impl, td):
     """One main-path run of `call` with gather_impl `impl`; every kernel's
     count is set to 0 just before it and read just after.  Returns the
     launch counts."""
     import torch
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
-    from hifimeth_tpu_torch.ops import fused, gather
     stats_json = os.path.join(td, f"stats.{impl}.json")
-    gather.group_windows_t.launches = 0
-    fused.fused_forward.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stats = run_call(big, out, CallConfig(device="cuda", gather_impl=impl,
                                           stats_json=stats_json))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"group_windows_t": gather.group_windows_t.launches,
-                "fused_forward": fused.fused_forward.launches}
+    launches = read_launches()
     n_sites = sum(stats[c] for c in CONTEXTS)
     with open(stats_json) as f:
         timers = json.load(f)["timers"]
@@ -372,6 +618,23 @@ def run_main(big, out, impl, td):
     if n_ml != n_sites:
         raise AssertionError(f"{impl}: ML holds {n_ml} probabilities for "
                              f"{n_sites} sites")
+    return launches
+
+
+def run_microbench():
+    """The window-fetch microbenchmark's main function, every variant at
+    --nb 2 and its default shape; every kernel's count is set to 0 just
+    before it and read just after.  Returns the launch counts."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import microbench_torch_gather as mb
+    reset_launches()
+    t0 = time.perf_counter()
+    mb.main(["--variants", ",".join(mb.VARIANTS), "--nb", "2"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[microbench] every variant in {time.perf_counter() - t0:.3f} s; "
+          f"launches {launches}")
     return launches
 
 
@@ -397,7 +660,7 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    kernels = ("group_windows", "fused_forward")
+    kernels = ("group_windows", "fused_forward", "row_windows")
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         k_futs = {k: pool.submit(build.kernel_library, k) for k in kernels}
         b_fut = pool.submit(build.bamcore_library)
@@ -405,7 +668,7 @@ def main() -> int:
         bamcore_lib = b_fut.result()
     if bamcore_lib is None:
         return fail("libbamcore did not build")
-    print(f"[build] {len(kernels)} kernels + libbamcore in "
+    print(f"[build] {len(kernels)} kernel libraries + libbamcore in "
           f"{time.perf_counter() - t0:.2f} s")
     for k, lib in libs.items():
         print(f"[build {k}] " + f"\n[build {k}] ".join(
@@ -413,34 +676,46 @@ def main() -> int:
             if "ptxas" in l or "spill" in l))
 
     # -- phase 2: kernels against their plain versions -------------------
-    rows = [phase_gather(), phase_fused()]
+    rows = [phase_gather(), phase_fused(), *phase_row_windows()]
 
     with tempfile.TemporaryDirectory() as td:
         small, big = os.path.join(td, "small.bam"), os.path.join(td, "big.bam")
         make_bam(small, 4, 4000, seed=1)
         make_bam(big, 200, 15000, seed=0)
         # warm-up + the card side of phase 4 (cuDNN picks its algorithms)
-        for impl in ("pallas", "fused"):
+        for impl in GATHER_IMPLS:
             run_call(small, os.path.join(td, f"small.{impl}.cuda.bam"),
                      CallConfig(device="cuda", gather_impl=impl))
 
         # -- phase 3: the main paths -------------------------------------
         launches = {}
-        for impl, kernel in (("pallas", "group_windows_t"),
-                             ("fused", "fused_forward")):
+        path_kernels = {"pallas": ("group_windows_t",),
+                        "fused": ("fused_forward",), "slice": (),
+                        "folded": ()}
+        for impl, want in path_kernels.items():
             got = run_main(big, os.path.join(td, f"big.{impl}.bam"), impl, td)
-            if got[kernel] <= 0:
-                return fail(f"the {impl} path launched {kernel} no time")
-            other = sum(v for k, v in got.items() if k != kernel)
+            for kernel in want:
+                if got[kernel] <= 0:
+                    return fail(f"the {impl} path launched {kernel} no time")
+                launches[kernel] = (got[kernel], f"call --gather-impl {impl}")
+            other = {k: v for k, v in got.items() if k not in want and v}
             if other:
                 return fail(f"the {impl} path launched another kernel "
-                            f"({got})")
-            launches[kernel] = got[kernel]
+                            f"({other})")
+        got = run_microbench()
+        for kernel in ("group_windows", "window_slices", "group_windows_t"):
+            if got[kernel] <= 0:
+                return fail(f"the microbenchmark launched {kernel} no time")
+        for kernel in ("group_windows", "window_slices"):
+            launches[kernel] = (got[kernel], "scripts/microbench_torch_gather.py"
+                                " (every variant, --nb 2)")
 
         # -- phase 4: parity ---------------------------------------------
-        compare(os.path.join(td, "big.fused.bam"),
-                os.path.join(td, "big.pallas.bam"), "fused-vs-pallas")
-        for impl in ("pallas", "fused"):
+        for a, b in (("fused", "pallas"), ("slice", "pallas"),
+                     ("folded", "slice")):
+            compare(os.path.join(td, f"big.{a}.bam"),
+                    os.path.join(td, f"big.{b}.bam"), f"{a}-vs-{b}")
+        for impl in GATHER_IMPLS:
             run_call(small, os.path.join(td, f"small.{impl}.cpu.bam"),
                      CallConfig(device="cpu", site_batch=512,
                                 gather_impl=impl))
@@ -449,7 +724,10 @@ def main() -> int:
                     f"cuda-vs-cpu {impl}")
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        if row["name"] in launches:
+            row["launches"], row["path"] = launches[row["name"]]
+    if any(row["launches"] <= 0 for row in rows):
+        return fail(f"a kernel was launched no time: {rows}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

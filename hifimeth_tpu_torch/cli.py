@@ -13,6 +13,7 @@ from .utils.logging import program_banner, program_info
 
 PROG = "hifimeth-tpu-torch"
 
+GATHER_IMPLS = ("auto", "slice", "folded", "pallas", "fused")
 NOT_YET_PORTED = ("pileup", "corr", "cov2bed", "sample", "eval",
                   "read-level-eval", "merge-shards", "merge-pileup-shards",
                   "import-model", "export-model", "extract-features", "train")
@@ -49,9 +50,11 @@ OPTIONS:
   --flush-bases INT    dispatch granularity in bases (0 = capacity)
   --stats-json PATH    write run stats as JSON
   --device {{cuda,cpu}}  where the model runs (default cuda)
-  --gather-impl {{auto,pallas,fused}}  per-site device path: the window
-                       gather kernel + CNN (auto = pallas), or one fused
-                       kernel for both (default auto)"""
+  --gather-impl {{auto,slice,folded,pallas,fused}}  per-site device path:
+                       the window gather kernel + CNN (auto = pallas), one
+                       fused kernel for both, or the indexing gathers over
+                       an (N, 8) table (slice) or its 16-position fold
+                       (folded) + CNN (default auto)"""
 
 
 def _parse_call(argv):
@@ -99,9 +102,10 @@ def _parse_call(argv):
                                  f"{argv[i + 1]} (expected cuda|cpu)")
             kw["device"] = argv[i + 1]
         elif a == "--gather-impl":
-            if argv[i + 1] not in ("auto", "pallas", "fused"):
+            if argv[i + 1] not in GATHER_IMPLS:
                 raise SystemExit(f"Illegal argument to option '--gather-impl'"
-                                 f": {argv[i + 1]} (expected auto|pallas|fused)")
+                                 f": {argv[i + 1]} (expected "
+                                 f"{'|'.join(GATHER_IMPLS)})")
             kw["gather_impl"] = argv[i + 1]
         elif a.startswith("-") and len(a) > 1:
             raise SystemExit(f"ERROR: unrecognised option {a}")

@@ -7,8 +7,10 @@ once, featurizes it once into an (8, cap) table (amortized over the ~100
 overlapping windows per base), plans position-sorted sites into groups, and
 calls every candidate site of a context in fixed-size batches: through the
 window-gather kernel and the context's CNN (`gather_impl` "pallas", the
-default), or through the fused kernel that runs gather and CNN per site in
-one launch ("fused").  Output records keep input order.
+default), through the fused kernel that runs gather and CNN per site in
+one launch ("fused"), or through the JAX package's XLA gathers, plain
+PyTorch indexing into an (N, 8) table ("slice") or its (N/16, 128) fold
+("folded"), each followed by the CNN.  Output records keep input order.
 
 Behavioral parity with the reference:
  - reads shorter than min_read_size or without kinetics pass through
@@ -36,7 +38,9 @@ from ..constants import CONTEXTS, FWD, KMER_SIZE
 from ..device import resolve_device
 from ..features import sites as sitefind
 from ..features.read_decode import decode_read
-from ..features.windows import call_sites_group, featurize_planes_t_seg
+from ..features.windows import (call_sites_batched, call_sites_group,
+                                featurize_planes_seg, featurize_planes_t_seg,
+                                fold_table)
 from ..io import native
 from ..io.bam import BamReader, BamRecord, BamWriter
 from ..io.mmtags import build_mod_tags
@@ -72,7 +76,9 @@ class CallConfig:
     stats_json: str = ""                 # write machine-readable run stats
     device: str = "cuda"                 # "cuda" or "cpu"
     gather_impl: str = "auto"            # "auto" (= "pallas"): gather kernel
-                                         # + CNN; "fused": one kernel for both
+                                         # + CNN; "fused": one kernel for
+                                         # both; "slice" | "folded": indexing
+                                         # gathers + CNN
 
     def resolve_model_dir(self) -> str:
         return self.model_dir or default_model_dir()
@@ -86,18 +92,15 @@ class _PendingRead:
     site_slices: dict = field(default_factory=dict)
 
 
-#: the JAX package's XLA gather paths, which have no kernel in the port yet
-_NOT_YET_PORTED_GATHERS = ("slice", "folded")
+#: gather paths of the group plan (the rest index per site: slice, folded)
+_PLANNED_GATHERS = ("pallas", "fused")
 
 
 def resolve_gather_impl(name: str) -> str:
-    """"auto" -> "pallas"; raises ValueError for anything but pallas/fused."""
+    """"auto" -> "pallas"; raises ValueError for an unknown name."""
     if name == "auto":
         return "pallas"
-    if name in _NOT_YET_PORTED_GATHERS:
-        raise ValueError(f"gather_impl {name!r} is not yet ported to the "
-                         f"PyTorch package; choose auto, pallas, or fused")
-    if name not in ("pallas", "fused"):
+    if name not in ("slice", "folded", "pallas", "fused"):
         raise ValueError(f"unknown gather_impl {name!r}; choose auto, slice, "
                          f"folded, pallas, or fused")
     return name
@@ -179,7 +182,8 @@ class CallEngine:
         site lists reset; the packed planes persist (fill-through)."""
         self._last_flush_fill = self._fill
         self._pending: list[_PendingRead] = []
-        self._sites = {ctx: {"centers": [], "strands": []}
+        self._sites = {ctx: {"centers": [], "strands": [], "rstart": [],
+                             "rend": []}
                        for ctx in self.cfg.contexts}
 
     def add_read(self, rec: BamRecord, out: list):
@@ -201,7 +205,10 @@ class CallEngine:
             raise ValueError(
                 f"read {rec.qname} ({read.size} bp) exceeds buffer capacity "
                 f"{cap}; raise --buffer-bases")
-        fb = self.cfg.flush_bases or cap
+        # the slice/folded paths featurize the whole buffer per flush, so
+        # they flush only when it is exhausted (the JAX engine's schedule)
+        planned = self.cfg.gather_impl in _PLANNED_GATHERS
+        fb = (self.cfg.flush_bases if planned else 0) or cap
         packed = self._fill - self._last_flush_fill
         if self._fill + read.size > cap - self._margin:
             # buffer exhausted: flush whatever is pending, start a new one
@@ -230,6 +237,8 @@ class CallEngine:
             lo = sum(len(c) for c in s["centers"])
             s["centers"].append(offs.astype(np.int32) + start)
             s["strands"].append(strands)
+            s["rstart"].append(np.full(len(offs), start, np.int32))
+            s["rend"].append(np.full(len(offs), end, np.int32))
             pend.site_slices[ctx] = (lo, lo + len(offs), offs, strands)
             self.stats[ctx] += len(offs)
         self.timers["sites"] += time.perf_counter() - t0
@@ -285,7 +294,13 @@ class CallEngine:
         with torch.inference_mode():
             planes = torch.from_numpy(np.ascontiguousarray(prefix))
             planes = planes.to(self.device)
-            table = featurize_planes_t_seg(planes, self.cfg.buffer_bases)
+            cap = self.cfg.buffer_bases
+            if self.cfg.gather_impl in _PLANNED_GATHERS:
+                table = featurize_planes_t_seg(planes, cap)
+            else:
+                table = featurize_planes_seg(planes, cap)
+                if self.cfg.gather_impl == "folded":
+                    table = fold_table(table)
             futures = {ctx: self._call_context(ctx, table, sites[ctx])
                        for ctx in self.cfg.contexts}
         done = None
@@ -306,6 +321,8 @@ class CallEngine:
         n = len(centers)
         if n == 0:
             return n, None, None
+        if self.cfg.gather_impl not in _PLANNED_GATHERS:
+            return self._call_context_batched(ctx, table, s, centers)
         strands = np.concatenate(s["strands"])
         if n > 1 and not np.all(centers[:-1] <= centers[1:]):
             order = np.argsort(centers, kind="stable")
@@ -361,14 +378,42 @@ class CallEngine:
             parts = [call(bases_d[b * ngrp:(b + 1) * ngrp],
                           rels_d[b * ngrp:(b + 1) * ngrp], rev)
                      for b in range(nb)]
-            probs = torch.cat(parts)
-            if self.device.type == "cuda":
-                host = torch.empty(probs.shape, dtype=torch.uint8,
-                                   pin_memory=True)
-                host.copy_(probs, non_blocking=True)
-                probs = host
-            results.append((probs, idx, sel, ng))
+            results.append((self._to_host(torch.cat(parts)), idx, sel, ng))
         return n, results, order
+
+    def _call_context_batched(self, ctx: str, table: torch.Tensor, s: dict,
+                              centers: np.ndarray):
+        """The slice/folded paths: every site in input order, padded with
+        center-0 sites (empty read bounds, so zero windows whose probs are
+        dropped at resolve) to the batch decomposition, called one bucket
+        chunk at a time; returns (n, streams, order) in _resolve's form,
+        one stream in site order."""
+        n = len(centers)
+        bs = self.cfg.site_batch
+        chunks = self._decompose_batches((n + bs - 1) // bs)
+        pad = sum(chunks) * bs - n
+        arrays = [np.concatenate([a, np.zeros(pad, a.dtype)]) for a in (
+            centers, np.concatenate(s["strands"]),
+            np.concatenate(s["rstart"]), np.concatenate(s["rend"]))]
+        dev = [torch.from_numpy(a).to(self.device) for a in arrays]
+        model = self.models.models[ctx]
+        parts, o = [], 0
+        for k in chunks:
+            sl = slice(o * bs, (o + k) * bs)
+            parts.append(call_sites_batched(
+                model, table, *(a[sl] for a in dev), site_batch=bs,
+                kmer=self.kmer, gather_impl=self.cfg.gather_impl))
+            o += k
+        return n, [(self._to_host(torch.cat(parts)), None, None, n)], None
+
+    def _to_host(self, probs: torch.Tensor) -> torch.Tensor:
+        """Enqueue the copy of a device result into pinned host memory (the
+        flush's event marks it done); CPU results pass through."""
+        if self.device.type != "cuda":
+            return probs
+        host = torch.empty(probs.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(probs, non_blocking=True)
+        return host
 
     def finalize(self, out: list):
         """Flush any packed reads and resolve everything in flight."""

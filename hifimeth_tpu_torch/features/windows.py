@@ -12,6 +12,13 @@ features/read_decode.py).  On the device:
     table with the gather kernel (ops/gather.group_windows_t) and runs the
     per-context CNN on them.
 
+The slice and folded paths (`call --gather-impl slice|folded`) keep the
+JAX package's XLA gathers instead: an (N, 8) position-major table
+(`featurize_planes`) or its (N/16, 128) fold (`featurize_planes_folded`),
+per-site windows cut by indexing with each site's read bounds masked
+(`gather_windows_slice`, `gather_windows_folded`), and the CNN per batch
+(`call_sites_batched`).  They have no kernel in either package.
+
 codeV1 decodes through the 256-entry CODEV1_TO_FRAME_NORM table on every
 device, so the table equals the host extractor's values bit for bit.
 """
@@ -21,9 +28,11 @@ import torch
 
 from ..constants import CODEV1_TO_FRAME_NORM, KMER_SIZE
 from ..model.cnn import DNAModNet, logits_to_scaled_probs
-from ..ops.gather import REV_CHANNEL_PERM, group_windows_t  # noqa: F401
+from ..ops.gather import REV_CHANNEL_PERM, group_windows_t
 
 _CODEV1_NORM = torch.from_numpy(CODEV1_TO_FRAME_NORM)
+#: positions per row of the folded table
+FOLD = 16
 
 
 def featurize_planes_t(planes: torch.Tensor) -> torch.Tensor:
@@ -56,6 +65,129 @@ def _featurize_into(planes: torch.Tensor, out: torch.Tensor) -> None:
     out[:4] = codes[None, :] == arange[:, None]
     lut = _CODEV1_NORM.to(planes.device)
     out[4:] = lut[planes[1:5].to(torch.int64)]
+
+
+def featurize_planes(planes: torch.Tensor) -> torch.Tensor:
+    """(5, N) u8 packed planes -> (N, 8) float32 position-major table (the
+    transpose of featurize_planes_t's)."""
+    return featurize_planes_seg(planes, planes.shape[1])
+
+
+def featurize_planes_seg(prefix: torch.Tensor, cap: int) -> torch.Tensor:
+    """Featurize the filled (5, m) prefix of the plane buffer into a
+    (cap, 8) table whose tail [m, cap) is zero: the transpose of
+    featurize_planes_t_seg's table."""
+    return featurize_planes_t_seg(prefix, cap).T.contiguous()
+
+
+def featurize_planes_folded(planes: torch.Tensor,
+                            fold: int = FOLD) -> torch.Tensor:
+    """(5, N) u8 packed planes -> (N/fold, fold*8) folded table: row r holds
+    positions [r*fold, (r+1)*fold).  N must be a multiple of `fold`."""
+    return fold_table(featurize_planes(planes), fold)
+
+
+def fold_table(feats: torch.Tensor, fold: int = FOLD) -> torch.Tensor:
+    """(N, C) table -> (N/fold, fold*C) view of the same memory."""
+    if fold < 1 or fold & (fold - 1):
+        raise ValueError(f"fold must be a power of two, got {fold}")
+    if feats.shape[0] % fold:
+        raise ValueError(f"{feats.shape[0]} positions are not a multiple of "
+                         f"fold {fold}")
+    return feats.view(feats.shape[0] // fold, fold * feats.shape[1])
+
+
+def _mask_and_orient(w: torch.Tensor, centers: torch.Tensor,
+                     strands: torch.Tensor, rstart: torch.Tensor,
+                     rend: torch.Tensor, kmer: int) -> torch.Tensor:
+    """Zero the window rows outside each site's read [rstart, rend) (the
+    reference's window zero padding, eval_kmer_features.cpp:40) and turn
+    reverse-strand windows: flipped rows, complement/swap channel
+    permutation (REV_CHANNEL_PERM on the first 8 channels)."""
+    j = torch.arange(kmer, dtype=torch.int32, device=w.device) - kmer // 2
+    pos = centers.to(torch.int32)[:, None] + j[None, :]
+    valid = (pos >= rstart[:, None]) & (pos < rend[:, None])
+    w = w * valid[..., None].to(w.dtype)
+    perm = list(REV_CHANNEL_PERM) + list(range(8, w.shape[-1]))
+    w_rev = w.flip(1)[..., perm]
+    return torch.where((strands != 0)[:, None, None], w_rev, w)
+
+
+def _window_rows(first: torch.Tensor, kmer: int) -> torch.Tensor:
+    return first[:, None] + torch.arange(kmer, device=first.device)
+
+
+def gather_windows_slice(feats: torch.Tensor, centers: torch.Tensor,
+                         strands: torch.Tensor, rstart: torch.Tensor,
+                         rend: torch.Tensor,
+                         kmer: int = KMER_SIZE) -> torch.Tensor:
+    """(N, C) table -> (B, kmer, C) windows: kmer consecutive rows from
+    center - kmer//2, that start clamped into [0, N - kmer] as
+    lax.dynamic_slice clamps it (a padded site, center 0, reads rows [0,
+    kmer) and is masked to zero by its empty read bounds), then masked and
+    oriented per strand."""
+    first = (centers.to(torch.int64) - kmer // 2).clamp(0, feats.shape[0] - kmer)
+    w = feats[_window_rows(first, kmer)]
+    return _mask_and_orient(w, centers, strands, rstart, rend, kmer)
+
+
+def gather_windows_folded(folded: torch.Tensor, centers: torch.Tensor,
+                          strands: torch.Tensor, rstart: torch.Tensor,
+                          rend: torch.Tensor, kmer: int = KMER_SIZE,
+                          fold: int = FOLD) -> torch.Tensor:
+    """(N/fold, fold*C) folded table -> (B, kmer, C) windows, bit-equal to
+    the JAX package's gather_windows_folded: the window's first folded row
+    r0 = start // fold is clipped into [0, R - frows] (frows rows cover a
+    window at any phase), and the phase d = start - r0*fold is applied
+    through its low log2(fold) bits, which is what the JAX select tree
+    shifts by.  For in-table starts that is the window at `start`; for a
+    padded site's negative start it is a window inside the table that the
+    read-bounds mask zeroes."""
+    if fold < 1 or fold & (fold - 1):
+        raise ValueError(f"fold must be a power of two, got {fold}")
+    c = folded.shape[1] // fold
+    frows = (kmer + 2 * (fold - 1)) // fold
+    if folded.shape[0] < frows:
+        raise ValueError(f"folded table of {folded.shape[0]} rows is shorter "
+                         f"than one window's {frows}")
+    start = centers.to(torch.int64) - kmer // 2
+    r0 = torch.div(start, fold, rounding_mode="floor").clamp(
+        0, folded.shape[0] - frows)
+    phase = (start - r0 * fold) & (fold - 1)
+    w = folded.reshape(-1, c)[_window_rows(r0 * fold + phase, kmer)]
+    return _mask_and_orient(w, centers, strands, rstart, rend, kmer)
+
+
+_BATCHED_GATHERS = {"slice": gather_windows_slice,
+                    "folded": gather_windows_folded}
+
+
+def call_sites_batched(model: DNAModNet, feats: torch.Tensor,
+                       centers: torch.Tensor, strands: torch.Tensor,
+                       rstart: torch.Tensor, rend: torch.Tensor,
+                       site_batch: int, kmer: int = KMER_SIZE,
+                       gather_impl: str = "slice") -> torch.Tensor:
+    """All sites of one chunk, site_batch at a time: windows by the slice
+    gather over the (N, 8) table or the folded gather over its fold, the
+    CNN on them, u8 scaled probs (n,) in site order.  n must be a multiple
+    of site_batch (the engine pads with center-0 sites)."""
+    if gather_impl not in _BATCHED_GATHERS:
+        raise ValueError(f"gather_impl must be slice or folded, got "
+                         f"{gather_impl!r}")
+    n = centers.shape[0]
+    if site_batch < 1 or n % site_batch:
+        raise ValueError(f"{n} sites are not a multiple of site_batch "
+                         f"{site_batch}")
+    gather = _BATCHED_GATHERS[gather_impl]
+    parts = [torch.empty(0, dtype=torch.uint8, device=feats.device)]
+    for o in range(0, n, site_batch):
+        sl = slice(o, o + site_batch)
+        w = gather(feats, centers[sl], strands[sl], rstart[sl], rend[sl],
+                   kmer)
+        # NWC -> the NCW layout DNAModNet takes
+        parts.append(logits_to_scaled_probs(
+            model(w.transpose(1, 2).contiguous())))
+    return torch.cat(parts)
 
 
 def call_sites_group(model: DNAModNet, table: torch.Tensor,

@@ -4,16 +4,18 @@
 Runs the port's run_call on the chip_smoke.py main-path input (200 reads x
 15 kb, random seed-0 kinetics, shipped models, default batch and buffer
 sizes) through one per-site path (--gather-impl: "pallas", the gather
-kernel + cuDNN CNN, or "fused", the fused kernel), once plain to time it and
-once under torch.profiler, and prints:
+kernel + cuDNN CNN; "fused", the fused kernel; "slice" or "folded", the
+indexing gathers + cuDNN CNN), once plain to time it and once under
+torch.profiler, and prints:
  - wall seconds and sites/s of the plain run;
  - device time by kernel class (the gather kernel, the fused kernel,
-   convolutions, matrix products, elementwise/other kernels, memory
-   copies), summed over the profiled run, and the device's busy share of
-   that run's wall time.
+   convolutions, matrix products, PyTorch indexing (the slice/folded
+   gathers), elementwise/other kernels, memory copies), summed over the
+   profiled run, and the device's busy share of that run's wall time.
 
 Usage (on a machine with a CUDA device):
-    python3 scripts/profile_torch_call.py [--gather-impl pallas|fused] [--out DIR]
+    python3 scripts/profile_torch_call.py [--gather-impl pallas|fused|slice|folded]
+        [--out DIR]
 With --out, the JSON summary is also written to
 DIR/profile_summary.<gather-impl>.json.
 """
@@ -42,13 +44,15 @@ def kernel_class(name: str) -> str:
     if "gemm" in n or "sgemm" in n or "cublas" in n or "ampere" in n \
             or "sm90" in n:
         return "matmul"
+    if "index" in n or "gather" in n:
+        return "indexing"
     return "elementwise/other"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gather-impl", default="pallas",
-                    choices=("pallas", "fused"))
+                    choices=("pallas", "fused", "slice", "folded"))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 

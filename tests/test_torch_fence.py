@@ -1,7 +1,7 @@
 """The port stands alone: no module of hifimeth_tpu_torch, and neither
-chip_smoke.py nor the port's profiling scripts, imports jax or the JAX
-package, and the GPU is never
-replaced by the CPU behind the caller's back."""
+chip_smoke.py nor the port's profiling and microbenchmark scripts, imports
+jax or the JAX package, and the GPU is never replaced by the CPU behind the
+caller's back."""
 import os
 import re
 import subprocess
@@ -14,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "hifimeth_tpu_torch")
 
 _IMPORTS_ALL = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.path.insert(0, ROOT)
 import hifimeth_tpu_torch
@@ -23,6 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(hifimeth_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+import microbench_torch_gather
 leaked = sorted(m for m in sys.modules
                 if m == "hifimeth_tpu" or m.startswith("hifimeth_tpu."))
 assert not leaked, leaked
@@ -45,7 +47,8 @@ def test_no_jax_import_statement_anywhere():
     pat = re.compile(r"^\s*(import|from)\s+(jax|hifimeth_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "scripts", f) for f in (
-            "profile_torch_call.py", "profile_fused_layers.py")]
+            "profile_torch_call.py", "profile_fused_layers.py",
+            "microbench_torch_gather.py")]
     for d, dirs, fs in os.walk(PKG):
         dirs[:] = [x for x in dirs if x != "_build"]     # build outputs
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
