@@ -9,7 +9,10 @@ Phases (any failure exits non-zero before the final line is printed):
     from this checkout, with each library's ptxas report;
  2. every kernel against its plain PyTorch version on the card, timed at
     its path's shape beside its bound and a PyTorch yardstick computing
-    the same function: group_windows_t bit-exact and fused_forward within
+    the same function (fused_forward's bound: the least FLOP the function
+    needs, see least_flops, at the tensor cores' 3xTF32 rate; the FP32
+    FFMA bound and the per-window count are printed beside it):
+    group_windows_t bit-exact and fused_forward within
     2e-3 logits and +-1 u8 at the call path's 8192 sites (K=11 (CpG) and
     K=13 (CHH) models, forward and reverse, main (clipped bases, padded
     groups), greedy-split and odd-width plans); group_windows,
@@ -44,10 +47,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM device-memory rate and FP32 rate outside the tensor cores
-#: (NVIDIA data sheet), bytes/s and FLOP/s
+#: H100 SXM device-memory rate, FP32 rate outside the tensor cores and
+#: dense TF32 tensor-core rate (NVIDIA data sheet), bytes/s and FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+#: an f32-accurate product on the tensor cores is three TF32 passes (3xTF32)
+F32_TENSOR_FLOPS = TF32_FLOPS / 3
 #: base composition (A, C, G, T) of the synthetic reads: GC ~0.36, about
 #: 0.30 all-context candidate sites per base, a plant genome's density
 PLANT = (0.32, 0.18, 0.18, 0.32)
@@ -226,6 +232,26 @@ def phase_gather():
             "library_ms": library_ms}
 
 
+def least_flops(w, starts):
+    """FLOP the fused function needs for windows at `starts` (FusedWeights
+    w): each distinct window once, and conv1 once per distinct output
+    position.  An interior conv1 output, whose taps all lie inside its
+    window, depends only on the table lane its taps start at, so
+    overlapping windows share it, as the replaced kernel's stride-1 block
+    conv1 shares it; the outputs that reach a window's zero pad are
+    computed per window.  Returns (FLOP, distinct windows, conv1 outputs)."""
+    import numpy as np
+    u = np.unique(starts)
+    k1, cin, cout = w.layout["convs.0.w"][1]
+    first = 2 * np.arange(w.lengths[0]) - 1     # window lane of tap 0
+    inner = (first >= 0) & (first + k1 <= w.kmer)
+    n_conv1 = (len(np.unique((u[:, None] + first[inner]).ravel()))
+               + int((~inner).sum()) * len(u))
+    conv1 = 2 * k1 * cin * cout
+    return ((w.flops_per_window() - conv1 * w.lengths[0]) * len(u)
+            + conv1 * n_conv1, len(u), n_conv1)
+
+
 def phase_fused():
     """fused_forward vs plain version within 2e-3 logits and +-1 u8, and
     timings; returns the kernel's JSON row without `launches`."""
@@ -294,25 +320,38 @@ def phase_fused():
     # kernel + cuDNN CNN in f32 + u8 conversion), several calls composed
     library_ms = cuda_ms(lambda: call_sites_group(models["CpG"], table, bd,
                                                   rd, False), iters=5)
-    flops = w.flops_per_window() * n_sites
-    moved = (w.buf.numel() * 4 + n_sites * 2 * 4 + b.nbytes + r.nbytes
-             + 8 * 4 * (int(b.max()) + 2048 - int(b[b > 0].min())))
-    bound_ms = max(flops / FP32_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
+    starts = (b.astype(np.int64)[:, None] + r).ravel()
+    # the least time for f32-accurate products is the tensor cores' in
+    # 3xTF32; the FP32 units' FFMA bound is printed beside it
+    bounds = {}
     for ctx in weights:
+        f, n_win, n_conv1 = least_flops(weights[ctx], starts)
+        per_window = weights[ctx].flops_per_window() * n_sites
+        moved = (weights[ctx].buf.numel() * 4 + n_sites * 2 * 4 + b.nbytes
+                 + r.nbytes
+                 + 8 * 4 * (int(b.max()) + 2048 - int(b[b > 0].min())))
+        bounds[ctx] = max(f / F32_TENSOR_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
+        ffma = max(f / FP32_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
         print(f"[kernels] fused_forward {ctx} at {n_sites} sites: fwd "
-              f"{times[ctx, False]:.4f} ms, rev {times[ctx, True]:.4f} ms, "
-              f"FLOP bound {weights[ctx].flops_per_window() * n_sites / FP32_FLOPS * 1e3:.4f} ms "
-              f"({weights[ctx].flops_per_window()} FLOP/window at 67 TFLOP/s)")
+              f"{times[ctx, False]:.4f} ms, rev {times[ctx, True]:.4f} ms; "
+              f"least work {f} FLOP ({n_win} distinct windows, conv1 at "
+              f"{n_conv1} distinct outputs; {per_window} FLOP counted per "
+              f"window): 3xTF32 bound {bounds[ctx]:.4f} ms "
+              f"({100 * bounds[ctx] / times[ctx, False]:.1f}% of it) at 165 "
+              f"TFLOP/s, FFMA bound {ffma:.4f} ms "
+              f"({100 * ffma / times[ctx, False]:.1f}%) at 67 TFLOP/s; "
+              f"per-window count at 165 TFLOP/s "
+              f"{per_window / F32_TENSOR_FLOPS * 1e3:.4f} ms")
     print(f"[kernels] fused_forward CpG: plain {plain_ms:.4f} ms, yardstick "
           f"(group_windows_t + cuDNN CNN + u8) {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms (operations; bytes {moved} B = "
-          f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+          f"{bounds['CpG']:.4f} ms (operations; bytes of the last model "
+          f"{moved} B = {moved / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     return {"name": "fused_forward", "route": "cuda",
             "source": "hifimeth_tpu_torch/ops/csrc/fused_forward.cu",
             "replaces": "hifimeth_tpu/ops/fused.py:373",
             "max_abs_err": max_err, "ms": times["CpG", False],
             "rev_ms": times["CpG", True], "chh_ms": times["CHH", False],
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "bound_ms": bounds["CpG"],
             "bound_by": "operations", "library_ms": library_ms}
 
 

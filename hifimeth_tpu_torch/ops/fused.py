@@ -3,21 +3,27 @@
 `call --gather-impl fused` sends every planned site through `fused_forward`:
 the site's (8, kmer) window is cut out of the (8, N) feature table (flipped
 and channel-permuted for the reverse strand, as in ops/gather.py), and bn0,
-conv1..conv8, fc1 and fc2 run on it without writing any activation to
-device memory; only the 2 logits per site come back.
+conv1..conv8, fc1 and fc2 run on it; only the 2 logits per site come back.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-ops/csrc/fused_forward.cu (which replaces the Pallas kernel
-hifimeth_tpu/ops/fused.py:_fused_kernel; the source note there gives its
-bound and design); on a CPU tensor it runs `fused_forward_plain`, the same
-function in PyTorch, computed from the same packed weights.  There is no
-fallback between the two: a failed build or launch raises.
+On a CUDA tensor the wrapper launches the hand-written kernels in
+ops/csrc/fused_forward.cu (which replace the Pallas kernel
+hifimeth_tpu/ops/fused.py:_fused_kernel; the source note there gives their
+bound and design: 3xTF32 tensor-core GEMMs; conv1 and conv2 per site and
+conv3 and conv4 per two sites on wgmma, then conv5..fc2 over 8 sites at a
+time on mma.sync, the kernels handing activations over in a device
+scratch buffer the wrapper allocates); one call counts one launch.
+On a CPU tensor it runs `fused_forward_plain`, the same function in
+PyTorch, computed from the same packed weights.  There is no fallback
+between the two: a failed build or launch raises.
 
 `prepare_fused_params` packs a DNAModNet into one contiguous float32 buffer
-(conv weights as (K, Cin, Cout), FC weights as (in, out), each at an offset
-the kernel reads from `meta`) and checks the geometry the kernel supports:
-the shipped 8-conv models, conv1 (11 | 13, 8, 128), stride 2 and zero pad
-(1, 1) everywhere, convs 2-8 of kernel size 3, fc1 128 -> 256, fc2 256 -> 2.
+(bn0, the biases, the conv and fc1 weights as they are, fc2 as (in, out),
+and the conv and fc1 weights once more split into TF32 halves in the
+chunks the kernels stream into shared memory, see `pack_split`; each
+tensor at an offset the kernel reads from `meta`) and checks the geometry the
+kernel supports: the shipped 8-conv models, conv1 (11 | 13, 8, 128),
+stride 2 and zero pad (1, 1) everywhere, convs 2-8 of kernel size 3 with
+the shipped widths (`WIDTHS`), fc1 128 -> 256, fc2 256 -> 2.
 """
 from __future__ import annotations
 
@@ -35,8 +41,39 @@ from .gather import GROUP, group_windows_t_plain
 KMER = 401
 N_CONVS = 8
 IN_CHANNELS = 8
-#: weight offsets are multiples of this many floats (16-byte vector reads)
+#: output channels of conv1..conv8 the kernel's tiles are built for
+WIDTHS = (128, 128, 128, 96, 96, 96, 64, 64)
+#: weight offsets are multiples of this many floats (16-byte bulk copies)
 _ALIGN = 4
+#: K-rows per weight chunk of conv1..conv8 and fc1, the depths the kernel's
+#: tiles are built for (kTiling in ops/csrc/fused_forward.cu, which checks
+#: them in `meta`)
+CHUNK_K = (32, 32, 32, 32, 32, 32, 32, 32, 8)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as cvt.rna.tf32.f32 rounds: add half a TF32 ulp to the magnitude
+    bits and clear the 13 dropped bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_split(w: torch.Tensor, kc: int) -> torch.Tensor:
+    """(K, N) weight (K = taps x Cin, tap-major, N a multiple of 8) -> flat
+    chunks of kc K-rows, K zero-padded to whole chunks; each chunk is its
+    TF32 hi = rna(w) and then lo = rna(w - hi), each in the order wgmma
+    reads an unswizzled K-major B tile: core matrices of 8 N-rows x 4
+    K-values (128 contiguous bytes), index [k // 4][n // 8][n % 8][k % 4]."""
+    k, n = w.shape
+    w = F.pad(w, (0, 0, 0, -k % kc))
+    hi = tf32_rna(w)
+    lo = tf32_rna(w - hi)
+
+    def core(t):
+        return t.reshape(-1, kc // 4, 4, n // 8, 8).permute(0, 1, 3, 4, 2)
+
+    return torch.stack([core(hi), core(lo)], 1).reshape(-1)
 
 
 @dataclass(frozen=True)
@@ -44,8 +81,13 @@ class FusedWeights:
     """A DNAModNet packed for the fused kernel.
 
     buf: (n,) float32 on the model's device; layout: name -> (offset,
-    shape) of each tensor in `buf`; lengths: per-conv output lengths for a
-    `kmer` window; meta: the int32 geometry the kernel reads."""
+    shape, kc) of each tensor in `buf`: kc 0 for a tensor stored as it is
+    (conv weights as (K, Cin, Cout), fc1 and fc2 as (in, out)), else the
+    chunk depth of the copy "convs.{i}.split" or "fc1.split" of a GEMM
+    weight, packed by `pack_split` as (K * Cin, Cout) or (in, out), which
+    the kernel reads;
+    lengths: per-conv output lengths for a `kmer` window; meta: the int32
+    geometry the kernel reads."""
     buf: torch.Tensor
     layout: dict
     kmer: int
@@ -53,7 +95,10 @@ class FusedWeights:
     meta: np.ndarray
 
     def tensor(self, name: str) -> torch.Tensor:
-        off, shape = self.layout[name]
+        """A tensor stored as it is (not a split copy), as a view."""
+        off, shape, kc = self.layout[name]
+        if kc:
+            raise ValueError(f"{name} is a split copy, not a tensor")
         return self.buf[off:off + int(np.prod(shape))].view(shape)
 
     def flops_per_window(self) -> int:
@@ -90,8 +135,8 @@ def prepare_fused_params(model_or_state_dict, device=None,
         device = sd["convs.0.weight"].device
     arrays = {}
 
-    def put(name, t):
-        arrays[name] = t.detach().to("cpu", torch.float32).contiguous()
+    def put(name, t, kc=0):
+        arrays[name] = (t.detach().to("cpu", torch.float32).contiguous(), kc)
 
     scale, shift = sd["bn0.scale"], sd["bn0.shift"]
     if tuple(scale.shape) != (IN_CHANNELS,) or tuple(shift.shape) != (IN_CHANNELS,):
@@ -112,13 +157,15 @@ def prepare_fused_params(model_or_state_dict, device=None,
         if geom != (2, 1, 1):
             raise ValueError(f"conv{i + 1} (stride, pad) {geom}, want "
                              f"(2, 1, 1)")
-        if wcin != cin or cout % 8 or not 8 <= cout <= 128:
+        if wcin != cin or cout != WIDTHS[i]:
             raise ValueError(f"conv{i + 1} shape {tuple(w.shape)} does not "
-                             f"chain (Cin {cin}, Cout a multiple of 8 <= 128)")
+                             f"chain (Cin {cin}, Cout {WIDTHS[i]})")
         lo = (lin + 2 - k) // 2 + 1
         if lo < 1:
             raise ValueError(f"window of {kmer} too short for conv{i + 1}")
-        put(f"convs.{i}.w", w.permute(2, 1, 0))            # (K, Cin, Cout)
+        w = w.permute(2, 1, 0)                             # (K, Cin, Cout)
+        put(f"convs.{i}.w", w)   # the kernel reads .split, the CPU .w
+        put(f"convs.{i}.split", w, CHUNK_K[i])
         put(f"convs.{i}.b", sd[f"convs.{i}.bias"])
         lengths.append(lo)
         lin, cin = lo, cout
@@ -130,14 +177,17 @@ def prepare_fused_params(model_or_state_dict, device=None,
         raise ValueError(f"fc2 {tuple(fc2.shape[::-1])} (in, out), want "
                          f"(256, 2)")
     put("fc1.w", fc1.t())
+    put("fc1.split", fc1.t(), CHUNK_K[N_CONVS])
     put("fc1.b", sd["fc1.bias"])
     put("fc2.w", fc2.t())
     put("fc2.b", sd["fc2.bias"])
 
     layout, parts, off = {}, [], 0
-    for name, t in arrays.items():
+    for name, (t, kc) in arrays.items():
+        layout[name] = (off, tuple(t.shape), kc)
+        if kc:
+            t = pack_split(t.reshape(-1, t.shape[-1]), kc)
         n = t.numel()
-        layout[name] = (off, tuple(t.shape))
         pad = -n % _ALIGN
         parts += [t.reshape(-1), torch.zeros(pad)]
         off += n + pad
@@ -149,15 +199,14 @@ def prepare_fused_params(model_or_state_dict, device=None,
 def _meta(layout: dict, kmer: int, lengths) -> np.ndarray:
     """The geometry the kernel reads, in the field order of struct Net in
     ops/csrc/fused_forward.cu."""
-    fc1_in, fc1_out = layout["fc1.w"][1]
+    fc1_off, (fc1_in, fc1_out), fc1_kc = layout["fc1.split"]
     m = [kmer, layout["bn0.scale"][0], layout["bn0.shift"][0],
-         layout["fc1.w"][0], layout["fc1.b"][0], fc1_in, fc1_out,
+         fc1_off, layout["fc1.b"][0], fc1_in, fc1_out, fc1_kc,
          layout["fc2.w"][0], layout["fc2.b"][0], layout["fc2.w"][1][1]]
     lin = kmer
     for i, lo in enumerate(lengths):
-        k, cin, cout = layout[f"convs.{i}.w"][1]
-        m += [k, cin, cout, lin, lo, layout[f"convs.{i}.w"][0],
-              layout[f"convs.{i}.b"][0]]
+        w_off, (k, cin, cout), kc = layout[f"convs.{i}.split"]
+        m += [k, cin, cout, lin, lo, w_off, layout[f"convs.{i}.b"][0], kc]
         lin = lo
     return np.asarray(m, np.int32)
 
@@ -196,13 +245,15 @@ _KERNEL_LIB = None
 
 
 def bind_kernel(path: str) -> ctypes.CDLL:
-    """Load a build of ops/csrc/fused_forward.cu and declare its entry."""
+    """Load a build of ops/csrc/fused_forward.cu and declare its entries."""
     lib = ctypes.CDLL(path)
     vp = ctypes.c_void_p
     lib.hm_fused_forward.restype = ctypes.c_int
     lib.hm_fused_forward.argtypes = [
         vp, ctypes.c_int64, vp, vp, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, vp, vp, ctypes.c_int, vp, vp]
+        ctypes.c_int, vp, vp, ctypes.c_int, vp, vp, vp]
+    lib.hm_fused_scratch_floats.restype = ctypes.c_int64
+    lib.hm_fused_scratch_floats.argtypes = [vp, ctypes.c_int]
     return lib
 
 
@@ -217,16 +268,24 @@ def _kernel_lib():
 def launch_kernel(lib: ctypes.CDLL, weights: FusedWeights,
                   table: torch.Tensor, bases: torch.Tensor,
                   rels: torch.Tensor, rev: bool, out: torch.Tensor) -> None:
-    """Launch `lib`'s kernel on the current stream into `out` (ng*G, 2);
-    the arguments must already have passed fused_forward's checks."""
+    """Launch `lib`'s kernels on the current stream into `out` (ng*G, 2);
+    the arguments must already have passed fused_forward's checks.  The
+    device scratch between the two kernels (conv4's output per site) is
+    allocated here."""
     ng, g = rels.shape
     meta = weights.meta
+    per_site = lib.hm_fused_scratch_floats(meta.ctypes.data, len(meta))
+    if per_site < 0:
+        raise ValueError("fused_forward: the kernel rejects this geometry")
+    scratch = torch.empty(ng * g * per_site, dtype=torch.float32,
+                          device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.hm_fused_forward(
             table.data_ptr(), table.shape[1], bases.data_ptr(),
             rels.data_ptr(), ng, g, int(rev), weights.buf.data_ptr(),
-            meta.ctypes.data, len(meta), out.data_ptr(), stream)
+            meta.ctypes.data, len(meta), scratch.data_ptr(), out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_forward launch failed: CUDA error {err}")
 

@@ -8,7 +8,11 @@ variant with CUDA events at the main path's shape (8192 sites, the
 chip_smoke.py main plan over a featurized table) for the CpG (conv1 K=11)
 and CHH (K=13) models.  Each stage's time is the difference of consecutive
 variants; beside it, its FLOP, its achieved FLOP/s and its share of the
-kernel.
+kernel.  The source has three kernels (head: window, conv1, conv2; mid:
+conv3, conv4; tail: conv5..fc2), handing activations over through a
+scratch buffer: stage conv2 carries writing conv2's output, conv3 reading
+it and the mid kernel's launch, conv5 reading conv4's output and the tail
+kernel's launch.
 
 Usage (on a machine with a CUDA device):
     python3 scripts/profile_fused_layers.py [--out DIR]

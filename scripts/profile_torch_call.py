@@ -35,7 +35,7 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "group_windows" in n:
         return "gather kernel"
-    if "fused_forward" in n:
+    if "fused_forward" in n or "::fused_" in n:   # fused_{head,mid,tail}
         return "fused kernel"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"

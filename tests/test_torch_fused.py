@@ -15,6 +15,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 from hifimeth_tpu.engine.call import CallConfig as JaxCallConfig
@@ -91,11 +92,31 @@ def _close(got, want):
     assert np.abs(d).max() <= 1
 
 
+def _jax_fused_logits(params, feats, starts, rev):
+    """The JAX package's fused kernel in interpret mode on the windows at
+    `starts`.  It has no reverse mode: it reads the pre-reversed table at
+    mirrored starts, reordered back to the forward sites' order
+    (tests/test_fused.py:91-112)."""
+    prep = jax_prepare(params)
+    if not rev:
+        bases, rels = _plan(starts, CAP)
+        return np.asarray(jax_fused(prep, jnp.asarray(feats),
+                                    jnp.asarray(bases), jnp.asarray(rels),
+                                    interpret=True))[:, :2]
+    mirrored = (CAP - 1 - (starts.astype(np.int64) + KMER - 1))
+    order = np.argsort(mirrored, kind="stable")
+    mb, mr = _plan(mirrored[order].astype(np.int32), CAP)
+    rows = np.asarray(jax_fused(prep, reverse_table(jnp.asarray(feats)),
+                                jnp.asarray(mb), jnp.asarray(mr),
+                                interpret=True))[:, :2]
+    want = np.empty_like(rows)
+    want[order] = rows
+    return want
+
+
 @pytest.mark.parametrize("rev", [False, True], ids=["forward", "reverse"])
 def test_plain_matches_jax_fused(model, rev):
-    """(a) forward and (b) reverse strand.  The JAX kernel has no reverse
-    mode: it reads the pre-reversed table at mirrored starts, reordered back
-    to the forward sites' order (tests/test_fused.py:91-112)."""
+    """(a) forward and (b) reverse strand."""
     _, params, weights, _ = model
     rng, feats = _table(seed=3)
     starts = _clustered_starts(rng, n_groups=3)
@@ -104,22 +125,74 @@ def test_plain_matches_jax_fused(model, rev):
                         torch.from_numpy(bases), torch.from_numpy(rels),
                         rev=rev).numpy()
     assert got.shape == (len(starts), 2)
-    prep = jax_prepare(params)
-    if not rev:
-        want = np.asarray(jax_fused(prep, jnp.asarray(feats),
-                                    jnp.asarray(bases), jnp.asarray(rels),
-                                    interpret=True))[:, :2]
-    else:
-        mirrored = (CAP - 1 - (starts.astype(np.int64) + KMER - 1))
-        order = np.argsort(mirrored, kind="stable")
-        mb, mr = _plan(mirrored[order].astype(np.int32), CAP)
-        rows = np.asarray(jax_fused(prep, reverse_table(jnp.asarray(feats)),
-                                    jnp.asarray(mb), jnp.asarray(mr),
-                                    interpret=True))[:, :2]
-        want = np.empty_like(rows)
-        want[order] = rows
-    _close(got, want)
+    _close(got, _jax_fused_logits(params, feats, starts, rev))
     assert fused_forward.launches == 0          # CPU tensors: plain version
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 as cvt.rna.tf32.f32 rounds: 10 mantissa bits kept,
+    ties away from zero (add half an ulp of TF32 to the magnitude bits,
+    clear the 13 dropped bits)."""
+    bits = x.contiguous().view(torch.int32).numpy().view(np.uint32)
+    bits = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(bits.view(np.float32).copy())
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tensor_core_forward(weights, x, passes):
+    """The packed network as the kernel computes it: bn0 and fc2 in float32,
+    every conv and fc1 product from TF32 operands, as the 3-term split sum
+    lo*hi + hi*lo + hi*hi (passes=3) or as one TF32 pass (passes=1).  A
+    product of two TF32 values is exact in float32, so float32 convolutions
+    of the split operands emulate the tensor cores up to the order of the
+    sums."""
+    t = weights.tensor
+
+    def product(op, a, w):
+        (ah, al), (wh, wl) = _split(a), _split(w)
+        if passes == 1:
+            return op(ah, wh)
+        return op(al, wh) + op(ah, wl) + op(ah, wh)
+
+    h = x * t("bn0.scale")[:, None] + t("bn0.shift")[:, None]
+    for i in range(8):
+        w = t(f"convs.{i}.w").permute(2, 1, 0).contiguous()
+        h = F.relu(product(lambda a, b: F.conv1d(a, b, stride=2, padding=1),
+                           h, w) + t(f"convs.{i}.b")[:, None])
+    h = F.relu(product(torch.matmul, h.flatten(1).contiguous(),
+                       t("fc1.w").contiguous()) + t("fc1.b"))
+    return h @ t("fc2.w") + t("fc2.b")
+
+
+@pytest.mark.parametrize("rev", [False, True], ids=["forward", "reverse"])
+def test_3xtf32_matches_jax_fused(model, rev):
+    """The CUDA kernel's arithmetic (3xTF32 on the tensor cores) holds the
+    fused path's tolerance against the JAX fused kernel on the inputs of
+    test_plain_matches_jax_fused.  The single-pass TF32 error is printed,
+    not asserted."""
+    ctx, params, weights, _ = model
+    rng, feats = _table(seed=3)
+    starts = _clustered_starts(rng, n_groups=3)
+    bases, rels = _plan(starts, CAP)
+    x = group_windows_t_plain(torch.from_numpy(feats),
+                              torch.from_numpy(bases),
+                              torch.from_numpy(rels), rev, KMER,
+                              torch.float32)
+    want = _jax_fused_logits(params, feats, starts, rev)
+    with torch.inference_mode():
+        got = _tensor_core_forward(weights, x, passes=3).numpy()
+        one = _tensor_core_forward(weights, x, passes=1).numpy()
+    _close(got, want)
+    du8 = np.abs(np.asarray(jax_probs(jnp.asarray(want))).astype(int)
+                 - logits_to_scaled_probs(torch.from_numpy(one)).numpy()
+                 .astype(int))
+    print(f"{ctx} rev={rev}: 3xTF32 max |logit err| "
+          f"{np.abs(got - want).max():.3g}; single-pass TF32 max |logit err|"
+          f" {np.abs(one - want).max():.3g}, max u8 diff {du8.max()}")
 
 
 @pytest.mark.parametrize("rev", [False, True], ids=["forward", "reverse"])
@@ -224,6 +297,72 @@ def test_weight_carry_matches_npz_loader(ctx):
                        module.convs[1].weight.detach())
     assert torch.equal(b.tensor("fc1.w").t(), module.fc1.weight.detach())
     assert b.flops_per_window() == (22_881_280 if k1 == 13 else 22_297_600)
+
+
+def _split_halves(w, name, plain, kc):
+    """The (2, K padded to whole chunks, N) hi and lo halves of the split
+    copy `name`, read back out of the buffer's chunks of kc K-rows, each
+    half in wgmma's core-matrix order [k // 4][n // 8][n % 8][k % 4]; checks
+    them against TF32 hi = rna(w) and lo = rna(w - hi) of the exact copy
+    `plain` (rounded as cvt.rna.tf32.f32 rounds, by the test's own
+    bit-level rounding), zeros in the padding, and hi + lo within 2^-21 of
+    the weight."""
+    off, shape, got_kc = w.layout[name]
+    assert got_kc == kc and off % 4 == 0 and shape == w.layout[plain][1]
+    want = w.tensor(plain).reshape(-1, shape[-1])
+    k, n = want.shape
+    kp = -(-k // kc) * kc
+    chunks = w.buf[off:off + 2 * kp * n].view(kp // kc, 2, kc // 4, n // 8,
+                                                 8, 4)
+    # (chunk, half, k // 4, n // 8, n % 8, k % 4) -> (half, K, N)
+    halves = chunks.permute(1, 0, 2, 5, 3, 4).reshape(2, kp, n)
+    hi, lo = halves[0, :k], halves[1, :k]
+    assert torch.equal(hi, _tf32(want))
+    assert torch.equal(lo, _tf32(want - hi))
+    assert not halves[:, k:].any()
+    assert ((hi + lo - want).abs() <= want.abs() * 2.0 ** -21).all()
+    return halves
+
+
+def test_weights_packed_in_k_major_chunks():
+    """conv5-conv8 and fc1, which the tail kernel runs on mma.sync, are
+    packed like conv1-conv4: K-major chunks of kc K-rows (K = taps x Cin,
+    tap-major; 32, and 8 for fc1) split into TF32 halves, beside the exact
+    weights the CPU path reads; the chunk depths and offsets are what
+    `meta` tells the kernel."""
+    module = load_model_npz(os.path.join(MODELS, "CHH.npz"), CPU)
+    w = prepare_fused_params(module)
+    assert len(w.meta) == 11 + 8 * 8
+    assert w.layout["convs.4.w"][2] == 0 and w.layout["fc1.w"][2] == 0
+    for name, kc in {"convs.4": 32, "convs.5": 32, "convs.6": 32,
+                     "convs.7": 32, "fc1": 8}.items():
+        _split_halves(w, f"{name}.split", f"{name}.w", kc)
+    conv5 = module.convs[4].weight.detach()             # (Cout, Cin, K)
+    halves = _split_halves(w, "convs.4.split", "convs.4.w", 32)
+    # K-rows 128..159 (chunk 4): tap 1, input channels 32..63
+    assert torch.equal(halves[0, 128:160], _tf32(conv5[:, 32:64, 1].t()))
+    meta = w.meta.tolist()
+    assert meta[3:8] == [w.layout["fc1.split"][0], w.layout["fc1.b"][0], 128,
+                         256, 8]
+    assert meta[11:19] == [13, 8, 128, KMER, 196,
+                           w.layout["convs.0.split"][0],
+                           w.layout["convs.0.b"][0], 32]
+    assert meta[11 + 4 * 8:11 + 5 * 8] == [
+        3, 96, 96, 25, 13, w.layout["convs.4.split"][0],
+        w.layout["convs.4.b"][0], 32]
+
+
+def test_head_weights_split_into_tf32_halves():
+    """conv1-conv4, which the kernel runs on wgmma, are packed as chunks of
+    32 K-rows split into TF32 halves in wgmma's core-matrix order; conv1's
+    K is zero-padded to whole chunks."""
+    module = load_model_npz(os.path.join(MODELS, "CHH.npz"), CPU)
+    w = prepare_fused_params(module)
+    for i, (taps, cin, cout) in enumerate([(13, 8, 128), (3, 128, 128),
+                                           (3, 128, 128), (3, 128, 96)]):
+        assert w.layout[f"convs.{i}.w"][1] == (taps, cin, cout)
+        halves = _split_halves(w, f"convs.{i}.split", f"convs.{i}.w", 32)
+        assert halves.shape[1] == -(-taps * cin // 32) * 32   # conv1: 128
 
 
 def test_call_fused_matches_jax_fused_and_pallas(tmp_path):
