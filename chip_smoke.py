@@ -19,7 +19,11 @@ Phases (any failure exits non-zero before the final line is printed):
     window_slices and window_rows bit-exact at the microbenchmark's 16384
     sites over a (4 Mi, 8) table (greedy-split plans, starts at the last
     legal row, odd row counts, 3-channel and misaligned tables, spp 8 and
-    64, mixed strands, and one out-of-contract clamp case each);
+    64, mixed strands, and one out-of-contract clamp case each; for
+    window_rows also other out_rows, 8 and 1544 sites, each case's route
+    printed, the microbenchmark's case held to the TMA route), and a DRAM
+    probe (scripts/probe_window_rows.py): reading every other 32-byte row of
+    a 256 MB table against every row;
  3. the main paths, each with every kernel's launch count set to 0 just
     before it and read just after: all-context `call` through the port's
     run_call at the shipped models' full width, over ~200 reads x 15 kb
@@ -395,6 +399,7 @@ def phase_row_windows():
     odd tables and out-of-contract starts, and timings; returns the three
     kernels' JSON rows without `launches`."""
     import numpy as np
+    import probe_window_rows
     import torch
     from hifimeth_tpu_torch.ops import gather as G
     dev = torch.device("cuda")
@@ -470,29 +475,53 @@ def phase_row_windows():
           f"cases ({', '.join(scases)})")
 
     # -- window_rows: random starts with the last legal one, mixed strands
-    # (and all forward, all reverse), odd tables, out-of-contract starts
+    # (the microbenchmark's case; and all forward, all reverse), an aligned
+    # 8-channel table of odd row count with its odd last legal start,
+    # out_rows of one box and of two boxes not filled (R = 32 and 168), 8
+    # sites (fewer than the CTAs), 1544 sites (a short last chunk of the
+    # TMA route's site order), odd tables (the scalar route),
+    # out-of-contract starts
     G.window_rows.launches = 0
     rstarts = rng.integers(0, n - fetch + 1, b).astype(np.int32)
     rstarts[:2] = (0, n - fetch)
     rs = i32(rstarts)
     is_rev = rng.integers(0, 2, b).astype(np.int32)
     rv = i32(is_rev)
-    rcases = {"mixed": (feats, feats_r, rs, rv),
-              "forward": (feats, feats_r, rs, torch.zeros_like(rv)),
-              "reverse": (feats, feats_r, rs, torch.ones_like(rv))}
+    rcases = {"mixed": (feats, feats_r, rs, rv, fetch, kmer),
+              "forward": (feats, feats_r, rs, torch.zeros_like(rv), fetch,
+                          kmer),
+              "reverse": (feats, feats_r, rs, torch.ones_like(rv), fetch,
+                          kmer)}
+    odd8 = [torch.from_numpy(rng.standard_normal((n_odd, 8), dtype=np.float32)
+                             ).to(dev) for _ in range(2)]
+    ostarts = rng.integers(0, n_odd - fetch + 1, 64).astype(np.int32)
+    ostarts[:4] = (n_odd - fetch, n_odd - fetch - 1, 1, 0)
+    rcases["odd rows"] = (*odd8, i32(ostarts), i32(rng.integers(0, 2, 64)),
+                          fetch, kmer)
+    rcases["out_rows 29"] = (feats, feats_r, rs, rv, 64, 29)
+    rcases["out_rows 333"] = (feats, feats_r, rs, rv, fetch, 333)
+    rcases["8 sites"] = (feats, feats_r, rs[-8:], rv[-8:], fetch, kmer)
+    rcases["1544 sites"] = (feats, feats_r, rs[:1544], rv[:1544], fetch, kmer)
     for name, t in odd.items():
         rcases[name] = (t, odd_r[name],
                         i32(rng.integers(0, n_odd - fetch + 1, 64)),
-                        i32(rng.integers(0, 2, 64)))
+                        i32(rng.integers(0, 2, 64)), fetch, kmer)
     rcases["clamp"] = (feats, feats_r,
                        i32(np.array([-5, n - fetch + 3, 1 << 30, -1] * 2)),
-                       i32([0, 1, 0, 1, 1, 0, 1, 0]))
-    for name, (d, dr, s, r) in rcases.items():
-        check_equal(f"window_rows ({name})",
-                    G.window_rows(d, dr, s, r, fetch, kmer),
-                    G.window_rows_plain(d, dr, s, r, fetch, kmer))
-    print(f"[kernels] window_rows bit-exact vs plain in {len(rcases)} cases "
-          f"({', '.join(rcases)})")
+                       i32([0, 1, 0, 1, 1, 0, 1, 0]), fetch, kmer)
+    routes = {}
+    for name, (d, dr, s, r, f, o) in rcases.items():
+        got = G.window_rows(d, dr, s, r, f, o)
+        check_equal(f"window_rows ({name})", got,
+                    G.window_rows_plain(d, dr, s, r, f, o))
+        routes[name] = G.window_rows_route(d.shape[1], o, d.data_ptr(),
+                                           dr.data_ptr(), got.data_ptr())
+    print(f"[kernels] window_rows bit-exact vs plain in {len(rcases)} cases, "
+          f"route: " + ", ".join(f"{k} {v}" for k, v in routes.items()))
+    if routes["mixed"] != "tma":
+        raise AssertionError(f"window_rows took the {routes['mixed']} route "
+                             f"at the microbenchmark's shape, not tma")
+    probe_window_rows.dram_probe(dev)
 
     # -- timings at the microbenchmark's shape.  The library yardstick is
     # the faster of two single PyTorch calls over precomputed indices
@@ -565,6 +594,16 @@ def phase_row_windows():
                      + covered_rows(rstarts[rev], kmer, n, 2)) * 32
         + rstarts.nbytes + is_rev.nbytes,
         "windows out, distinct rows of both tables in, starts, strands"))
+    # the floor of a DRAM that moves 64-byte bursts: row s + 2j lies in
+    # 64-byte pair s // 2 + j, whichever half it is
+    pairs = (out_bytes + (covered_rows(rstarts[~rev] >> 1, kmer, n // 2)
+                          + covered_rows(rstarts[rev] >> 1, kmer, n // 2))
+             * 64 + rstarts.nbytes + is_rev.nbytes)
+    pairs_ms = pairs / HBM_BYTES_PER_S * 1e3
+    print(f"[kernels] window_rows ({routes['mixed']} route): "
+          f"{100 * rows[-1]['bound_ms'] / rows[-1]['ms']:.1f}% of the "
+          f"32-byte bound; 64-byte pair count {pairs} B = {pairs_ms:.4f} ms "
+          f"({100 * pairs_ms / rows[-1]['ms']:.1f}% of it)")
     rows[-1]["path"] = ("none: no path of the repository calls window_rows; "
                         "launches are this phase's")
     rows[-1]["launches"] = G.window_rows.launches
@@ -664,9 +703,8 @@ def run_microbench():
     """The window-fetch microbenchmark's main function, every variant at
     --nb 2 and its default shape; every kernel's count is set to 0 just
     before it and read just after.  Returns the launch counts."""
-    import torch
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import microbench_torch_gather as mb
+    import torch
     reset_launches()
     t0 = time.perf_counter()
     mb.main(["--variants", ",".join(mb.VARIANTS), "--nb", "2"])
@@ -684,6 +722,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hifimeth_tpu_torch")):
         return fail("hifimeth_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import probe_window_rows
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
     from hifimeth_tpu_torch.ops import build
 
@@ -700,14 +740,17 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     kernels = ("group_windows", "fused_forward", "row_windows")
-    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+    with ThreadPoolExecutor(len(kernels) + 2) as pool:
         k_futs = {k: pool.submit(build.kernel_library, k) for k in kernels}
         b_fut = pool.submit(build.bamcore_library)
+        p_fut = pool.submit(probe_window_rows.build)
         libs = {k: f.result() for k, f in k_futs.items()}
         bamcore_lib = b_fut.result()
+        p_fut.result()
     if bamcore_lib is None:
         return fail("libbamcore did not build")
-    print(f"[build] {len(kernels)} kernel libraries + libbamcore in "
+    print(f"[build] {len(kernels)} kernel libraries + libbamcore + the DRAM "
+          f"probe in "
           f"{time.perf_counter() - t0:.2f} s")
     for k, lib in libs.items():
         print(f"[build {k}] " + f"\n[build {k}] ".join(

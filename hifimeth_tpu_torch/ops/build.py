@@ -90,8 +90,13 @@ def nvcc_path() -> str:
 
 def kernel_library(name: str) -> str:
     """Build ops/csrc/<name>.cu for sm_90a; raises BuildError on failure."""
-    return _build(os.path.join(CSRC_DIR, f"{name}.cu"), name, nvcc_path(),
-                  NVCC_FLAGS, [])
+    return cuda_library(os.path.join(CSRC_DIR, f"{name}.cu"), name)
+
+
+def cuda_library(src: str, name: str) -> str:
+    """Build the CUDA source `src` for sm_90a into BUILD_DIR as lib<name>;
+    raises BuildError on failure."""
+    return _build(src, name, nvcc_path(), NVCC_FLAGS, [])
 
 
 def bamcore_library() -> str | None:

@@ -15,7 +15,10 @@ them:
    site's `kmer` rows cut from its group's block;
  - `window_slices`: `kmer` consecutive rows per site;
  - `window_rows`: every other row of `fetch_rows` rows per site, from the
-   forward or the reverse table.
+   forward or the reverse table.  On the card it takes one of two routes,
+   chosen by `window_rows_route` from the table width and the pointers'
+   alignment: TMA boxes over a row-pair view of each table with one bulk
+   store per site, or a scalar copy.
 Each clamps the start it reads from into its table, as lax.dynamic_slice
 does, so no start reads outside the table.
 
@@ -30,6 +33,7 @@ between the two: a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -267,7 +271,7 @@ def _row_lib():
                                          i32, i32, vp, vp]
         lib.hm_window_slices.argtypes = [vp, i64, i32, vp, i32, i32, vp, vp]
         lib.hm_window_rows.argtypes = [vp, vp, i64, i32, vp, vp, i32, i32,
-                                       i32, vp, vp]
+                                       i32, i32, i32, i32, i32, vp, vp, vp]
         for fn in (lib.hm_group_windows, lib.hm_window_slices,
                    lib.hm_window_rows):
             fn.restype = ctypes.c_int
@@ -277,10 +281,14 @@ def _row_lib():
 
 def _launch(name: str, device: torch.device, entry: str, *args) -> None:
     """Call `entry` of the row_windows library on `device`'s current stream
-    (the last argument); raise on a CUDA error."""
+    (the last argument); raise on a CUDA error (a negative code: a failed
+    tensor-map encode, minus its CUresult)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_row_lib(), entry)(*args, stream)
+    if err < 0:
+        raise RuntimeError(f"{name}: tensor-map encode failed: CUresult "
+                           f"{-err}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -361,6 +369,37 @@ def window_slices(feats: torch.Tensor, starts: torch.Tensor, kmer: int,
 window_slices.launches = 0
 
 
+#: shared memory of one CTA's ring of stages in window_rows' TMA route,
+#: bytes (two CTAs fit an SM); the route needs room for two stages (one
+#: site's boxes each), and the kernel takes as many as fit, up to 8
+ROWS_RING_BYTES = 104 << 10
+#: the TMA's largest box side, in elements
+TMA_BOX_MAX = 256
+
+
+def window_rows_boxes(out_rows: int, channels: int) -> tuple[int, int]:
+    """The TMA route's tiling of one site's `out_rows` rows: (n_box, R),
+    the fewest boxes of R <= 256 rows that cover them, R rounded up so that
+    a box of R x `channels` float32 is a multiple of 128 bytes (every box's
+    shared-memory address stays 128-byte aligned)."""
+    n_box = -(-out_rows // TMA_BOX_MAX)
+    step = 32 // math.gcd(channels, 32)
+    r = -(-out_rows // n_box)
+    return n_box, -(-r // step) * step
+
+
+def window_rows_route(channels: int, out_rows: int, *ptrs: int) -> str:
+    """"tma" where a table row is whole 16-byte units (`channels` % 4 == 0)
+    that fit a TMA box (<= 256), every data pointer in `ptrs` is 16-byte
+    aligned and two stages of one site's boxes fit ROWS_RING_BYTES; else
+    "scalar".  window_rows launches the route this returns and no other."""
+    if channels % 4 or channels > TMA_BOX_MAX or any(p % 16 for p in ptrs):
+        return "scalar"
+    n_box, r = window_rows_boxes(out_rows, channels)
+    stage = n_box * r * channels * 4
+    return "tma" if 2 * stage <= ROWS_RING_BYTES else "scalar"
+
+
 def window_rows(d_table: torch.Tensor, dr_table: torch.Tensor,
                 starts: torch.Tensor, is_rev: torch.Tensor, fetch_rows: int,
                 out_rows: int, spp: int = 8) -> torch.Tensor:
@@ -369,8 +408,9 @@ def window_rows(d_table: torch.Tensor, dr_table: torch.Tensor,
     is_rev[i] != 0, else of d_table, with s = starts[i] clamped into [0, N -
     fetch_rows].  No flip: callers flip reverse-strand rows.  fetch_rows
     must be even and out_rows <= fetch_rows // 2; B a multiple of `spp`.
-    CUDA tensors launch the kernel (counted in `window_rows.launches`); CPU
-    tensors run the plain version."""
+    CUDA tensors launch the kernel by the route `window_rows_route` picks
+    (counted in `window_rows.launches`); CPU tensors run the plain
+    version."""
     if fetch_rows < 2 or fetch_rows % 2:
         raise ValueError(f"fetch_rows must be even and positive, got "
                          f"{fetch_rows}")
@@ -392,10 +432,19 @@ def window_rows(d_table: torch.Tensor, dr_table: torch.Tensor,
                       device=d_table.device)
     if b == 0:
         return out
+    c = d_table.shape[1]
+    route = window_rows_route(c, out_rows, d_table.data_ptr(),
+                              dr_table.data_ptr(), out.data_ptr())
+    n_box, box_rows = window_rows_boxes(out_rows, c)
+    # the TMA route's site order, (site, start and strand) per site, and
+    # its site counter
+    plan = (torch.empty(2 * b + 2, dtype=torch.int32, device=d_table.device)
+            if route == "tma" else None)
     _launch("window_rows", d_table.device, "hm_window_rows",
-            d_table.data_ptr(), dr_table.data_ptr(), d_table.shape[0],
-            d_table.shape[1], starts.data_ptr(), is_rev.data_ptr(), b,
-            fetch_rows, out_rows, out.data_ptr())
+            d_table.data_ptr(), dr_table.data_ptr(), d_table.shape[0], c,
+            starts.data_ptr(), is_rev.data_ptr(), b, fetch_rows, out_rows,
+            int(route == "tma"), n_box, box_rows, ROWS_RING_BYTES,
+            None if plan is None else plan.data_ptr(), out.data_ptr())
     window_rows.launches += 1
     return out
 

@@ -25,6 +25,7 @@ for name in names:
 import chip_smoke
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import microbench_torch_gather
+import probe_window_rows
 leaked = sorted(m for m in sys.modules
                 if m == "hifimeth_tpu" or m.startswith("hifimeth_tpu."))
 assert not leaked, leaked
@@ -48,7 +49,7 @@ def test_no_jax_import_statement_anywhere():
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "scripts", f) for f in (
             "profile_torch_call.py", "profile_fused_layers.py",
-            "microbench_torch_gather.py")]
+            "microbench_torch_gather.py", "probe_window_rows.py")]
     for d, dirs, fs in os.walk(PKG):
         dirs[:] = [x for x in dirs if x != "_build"]     # build outputs
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]

@@ -14,8 +14,11 @@ import jax.numpy as jnp
 from hifimeth_tpu.ops.gather import group_windows as jax_group_windows
 from hifimeth_tpu.ops.gather import window_rows as jax_window_rows
 from hifimeth_tpu.ops.gather import window_slices as jax_window_slices
-from hifimeth_tpu_torch.ops.gather import (group_windows, plan_groups,
-                                           window_rows, window_slices)
+from hifimeth_tpu_torch.ops.gather import (ROWS_RING_BYTES, group_windows,
+                                           plan_groups, window_rows,
+                                           window_rows_boxes,
+                                           window_rows_plain,
+                                           window_rows_route, window_slices)
 
 KMER = 401
 N = 4096
@@ -143,6 +146,84 @@ def test_out_of_contract_starts_clamp_into_the_table(kernel):
         r = np.clip(rels, 0, BLOCK_ROWS - KMER)
         want = [feats[s:s + KMER] for s in (b[:, None] + r).ravel()]
     np.testing.assert_array_equal(got, np.stack(want))
+
+
+def _tma_stage(table, s, out_rows):
+    """What the TMA route lands in shared memory for a site starting at
+    clamped row s: window_rows_boxes' boxes of {C, R} over the table's (N //
+    2, 2C) row-pair view at pair s // 2, column (s % 2) * C, rows past the
+    view zero-filled."""
+    c = table.shape[1]
+    pairs = table[:table.shape[0] // 2 * 2].reshape(-1, 2 * c)
+    n_box, r = window_rows_boxes(out_rows, c)
+    stage = np.zeros((n_box * r, c), np.float32)
+    p0, col = s // 2, (s % 2) * c
+    got = pairs[p0:p0 + n_box * r, col:col + c]
+    stage[:len(got)] = got
+    return stage
+
+
+@pytest.mark.parametrize("n_rows", [4096, 5003])
+@pytest.mark.parametrize("fetch_rows,out_rows", [(802, 401), (64, 29)])
+def test_window_rows_pair_view(n_rows, fetch_rows, out_rows):
+    """The TMA route's view: rows s, s+2, ... of a table are rows s // 2,
+    s // 2 + 1, ... of its (N // 2, 2C) row-pair view, half s % 2, for
+    even and odd starts, the last legal start (odd for N = 5003: its last
+    row, which no pair holds, is never read) and clamped ones; the boxes
+    cover every stored row and what they load past the view is never
+    stored."""
+    rng = np.random.default_rng(n_rows + fetch_rows)
+    d, dr = _table(rng, n_rows), _table(rng, n_rows)
+    last = n_rows - fetch_rows
+    starts = np.concatenate([[0, 1, last, last - 1, -7, last + 3],
+                             rng.integers(0, last + 1, 10)]).astype(np.int32)
+    is_rev = (np.arange(len(starts)) % 2).astype(np.int32)
+    got = window_rows_plain(_t(d), _t(dr), _t(starts), _t(is_rev),
+                            fetch_rows, out_rows).numpy()
+    for i, (s, r) in enumerate(zip(starts, is_rev)):
+        s = min(max(int(s), 0), last)
+        t = dr if r else d
+        want = t[s:s + fetch_rows:2][:out_rows]
+        half = s % 2
+        pairs = t[:n_rows // 2 * 2].reshape(-1, 16)
+        np.testing.assert_array_equal(
+            pairs[s // 2:s // 2 + out_rows, half * 8:(half + 1) * 8], want)
+        np.testing.assert_array_equal(_tma_stage(t, s, out_rows)[:out_rows],
+                                      want)
+        np.testing.assert_array_equal(got[i], want)
+    assert last + 2 * (out_rows - 1) <= n_rows - 2
+    assert window_rows.launches == 0
+
+
+@pytest.mark.parametrize("case,channels,out_rows,ptrs,want", [
+    ("microbenchmark", 8, 401, (1 << 20, 2 << 20, 3 << 20), "tma"),
+    ("4 channels", 4, 401, (0, 16, 32), "tma"),
+    ("3 channels", 3, 401, (0, 16, 32), "scalar"),
+    ("table 4 bytes off", 8, 401, (4, 16, 32), "scalar"),
+    ("output 4 bytes off", 8, 401, (0, 16, 36), "scalar"),
+    ("box wider than 256", 260, 29, (0, 16, 32), "scalar"),
+    ("stage too large", 8, 1700, (0, 16, 32), "scalar"),
+])
+def test_window_rows_route(case, channels, out_rows, ptrs, want):
+    """The route window_rows launches: TMA for whole 16-byte rows that fit
+    a box, aligned pointers and two stages within ROWS_RING_BYTES; else
+    scalar."""
+    assert window_rows_route(channels, out_rows, *ptrs) == want
+
+
+@pytest.mark.parametrize("out_rows,channels", [
+    (401, 8), (29, 8), (333, 8), (256, 8), (257, 8), (401, 4), (401, 12),
+    (1600, 8)])
+def test_window_rows_boxes(out_rows, channels):
+    """Fewest boxes of at most 256 rows that cover out_rows, each a multiple
+    of 128 bytes; 401 rows of 8 channels are two boxes of 204."""
+    n_box, r = window_rows_boxes(out_rows, channels)
+    assert n_box == -(-out_rows // 256) and 1 <= r <= 256
+    assert n_box * r >= out_rows and (n_box - 1) * r < out_rows
+    assert r * channels * 4 % 128 == 0
+    if (out_rows, channels) == (401, 8):
+        assert (n_box, r) == (2, 204)
+        assert 2 * n_box * r * channels * 4 <= ROWS_RING_BYTES
 
 
 def _bad_calls():
