@@ -27,16 +27,30 @@ Phases (any failure exits non-zero before the final line is printed):
  3. the main paths, each with every kernel's launch count set to 0 just
     before it and read just after: all-context `call` through the port's
     run_call at the shipped models' full width, over ~200 reads x 15 kb
-    (~0.9 M sites), once per gather_impl ("pallas": group_windows_t +
-    cuDNN CNN; "fused": fused_forward; "slice" and "folded": indexing
-    gathers + cuDNN CNN, which launch no hand kernel), and the window-fetch
-    microbenchmark (scripts/microbench_torch_gather.py, every variant, 2
-    batches), which launches group_windows, window_slices and
-    group_windows_t;
+    (~0.9 M sites), once per gather_impl through the asynchronous pipeline
+    (decode workers, segment-streamed planes, dispatch/resolve/emit
+    workers; "pallas": group_windows_t + cuDNN CNN; "fused": fused_forward;
+    "slice" and "folded": indexing gathers + cuDNN CNN, which launch no
+    hand kernel); then pallas and fused with --sync-emit (sites/s beside
+    the async run); pallas in bf16 (group_windows_t writing bf16
+    windows); pallas on a forced schedule (256 Ki buffer, 48 Ki flushes,
+    3 decode workers), which must roll buffers over, cut flushes at
+    segments and carry reads; and the window-fetch microbenchmark
+    (scripts/microbench_torch_gather.py, every variant, 2 batches), which
+    launches group_windows, window_slices and group_windows_t;
  4. outputs held to the parity contract (MM/MN byte-equal, ML within +-1,
     at most 5% of ML bytes off): fused against pallas, slice against
-    pallas and folded against slice on the card over the big input, and
-    the card against the port's CPU run on a small input, for every path.
+    pallas and folded against slice on the card over the big input; async
+    against sync for pallas and fused, and the forced schedule against the
+    default, byte-equal; bf16 against f32 pallas with MM/MN equal and ML
+    inside bench.py's self-check gate (max 24, mean 2.0) and a mean of at
+    least 0.3 (a run that skips the bf16 rounding reads near 0) over the
+    big input, and on the input the JAX package's bf16 band was taken on
+    (bench.py's self-check: 20 reads x 5 kb, uniform, seed 7) no wider
+    than that band (BENCH_r05.json: mean 0.62, 2.423% of bytes off by more
+    than 3; its max of 10, one site's extreme, is printed beside the
+    port's); and the card against the port's CPU run on a small input, for
+    every path and for bf16 (bf16 within max 10, mean 0.2).
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  window_rows lies on no path of the
 repository: its `launches` are its phase-2 launches.
@@ -61,12 +75,46 @@ F32_TENSOR_FLOPS = TF32_FLOPS / 3
 #: base composition (A, C, G, T) of the synthetic reads: GC ~0.36, about
 #: 0.30 all-context candidate sites per base, a plant genome's density
 PLANT = (0.32, 0.18, 0.18, 0.32)
+#: bench.py's "uniform" composition, of its self-check input
+UNIFORM = (0.25, 0.25, 0.25, 0.25)
 SITE_BATCH = 8192
 CONTEXTS = ("CpG", "CHG", "CHH")
 #: the window-fetch microbenchmark's shape (scripts/microbench_torch_gather.py)
 MICRO_SITES = 16384
 MICRO_ROWS = 1 << 22
 GATHER_IMPLS = ("pallas", "fused", "slice", "folded")
+#: the main-path runs of phase 3: label -> (CallConfig fields, the kernels
+#: the run must launch)
+MAIN_RUNS = {
+    "pallas": (dict(gather_impl="pallas"), ("group_windows_t",)),
+    "fused": (dict(gather_impl="fused"), ("fused_forward",)),
+    "slice": (dict(gather_impl="slice"), ()),
+    "folded": (dict(gather_impl="folded"), ()),
+    "pallas-sync": (dict(gather_impl="pallas", async_emit=False),
+                    ("group_windows_t",)),
+    "fused-sync": (dict(gather_impl="fused", async_emit=False),
+                   ("fused_forward",)),
+    "pallas-bf16": (dict(gather_impl="pallas", compute_dtype="bfloat16"),
+                    ("group_windows_t",)),
+    "pallas-forced": (dict(gather_impl="pallas", buffer_bases=1 << 18,
+                           flush_bases=48 << 10, decode_workers=3),
+                      ("group_windows_t",)),
+}
+#: the JAX package's bf16 band against its float32 (BENCH_r05.json), taken
+#: by bench.py's self-check on its input (20 reads x 5 kb, uniform, seed 7,
+#: site_batch 16384): max and mean |diff| of the ML bytes and the share off
+#: by more than 3
+BF16_BAND = {"max": 10, "mean": 0.62, "share_gt3": 0.02423}
+#: the self-check's own gate for bf16 on any input (bench.py run_selfcheck):
+#: max and mean |diff|
+BF16_GATE = (24, 2.0)
+#: the least mean |diff| of bf16 against float32: the port read 0.58-0.61
+#: on the card and the CPU (PERF.md), float32 against itself reads 0, so a
+#: run under half of that did not round each layer to bf16
+BF16_FLOOR_MEAN = 0.3
+#: the card's bf16 against the CPU's bf16, max and mean |diff|: the two
+#: differ only in the order of float32 sums (read: max 4, mean 0.05-0.07)
+BF16_DEVICE = (10, 0.2)
 
 
 def fail(msg: str) -> int:
@@ -74,8 +122,9 @@ def fail(msg: str) -> int:
     return 1
 
 
-def make_bam(path, n_reads, read_len, seed):
-    """Unmapped HiFi-like reads with random codeV1 kinetics (fi/ri/fp/rp)."""
+def make_bam(path, n_reads, read_len, seed, composition=PLANT):
+    """Unmapped HiFi-like reads with random codeV1 kinetics (fi/ri/fp/rp);
+    the same draws as bench.py's make_synthetic_bam."""
     import numpy as np
     from hifimeth_tpu_torch.io.bam import BamHeader, BamRecord, BamWriter
 
@@ -85,7 +134,7 @@ def make_bam(path, n_reads, read_len, seed):
                    threads=8) as w:
         for i in range(n_reads):
             rec = BamRecord(qname=f"m/{i}/ccs", flag=4)
-            rec.set_seq(rng.choice(bases, read_len, p=PLANT),
+            rec.set_seq(rng.choice(bases, read_len, p=composition),
                         qual=np.full(read_len, 40, np.uint8))
             for tag in ("fi", "ri", "fp", "rp"):
                 rec.set_tag(tag, "B", ("C", rng.integers(
@@ -620,14 +669,19 @@ def read_tags(path):
     return out
 
 
-def compare(path_a, path_b, label):
-    """Parity contract between two outputs: same records in order, MM/MN
-    byte-equal, ML within +-1 with at most 5% of ML bytes off."""
+def compare(path_a, path_b, label, mode="contract"):
+    """Two outputs: same records in order, MM/MN byte-equal, and ML by
+    `mode`: "contract" within +-1 with at most 5% of ML bytes off, "equal"
+    byte-equal, "bf16-gate" (bf16 against float32) inside BF16_GATE with
+    a mean of at least BF16_FLOOR_MEAN, "bf16" as "bf16-gate" and no wider
+    than BF16_BAND in mean and share off by more than 3 (its max, one
+    site's extreme, is printed beside the band's), "bf16-device" (bf16 on
+    two devices) inside BF16_DEVICE."""
     import numpy as np
     a, b = read_tags(path_a), read_tags(path_b)
     if [x[0] for x in a] != [x[0] for x in b]:
         raise AssertionError(f"{label}: records differ in order")
-    n_off = n_tot = max_d = 0
+    n_off = n_tot = max_d = sum_d = n_gt3 = 0
     for (q, mm, ml, mn), (_, mm2, ml2, mn2) in zip(a, b):
         if mm != mm2 or mn != mn2 or (ml is None) != (ml2 is None):
             raise AssertionError(f"{label}: {q}: MM/MN differ")
@@ -638,12 +692,44 @@ def compare(path_a, path_b, label):
         d = np.abs(ml.astype(int) - ml2.astype(int))
         max_d = max(max_d, int(d.max()) if len(d) else 0)
         n_off += int((d > 0).sum())
+        n_gt3 += int((d > 3).sum())
+        sum_d += int(d.sum())
         n_tot += len(d)
+    mean_d = sum_d / max(n_tot, 1)
+    share_gt3 = n_gt3 / max(n_tot, 1)
     print(f"[{label}] {len(a)} reads, {n_tot} ML bytes: MM/MN equal, "
-          f"{n_off} ML bytes off, max |diff| {max_d}")
-    if n_tot == 0 or max_d > 1 or n_off > 0.05 * n_tot:
+          f"{n_off} ML bytes off, max |diff| {max_d}, mean |diff| {mean_d}, "
+          f"share > 3 {share_gt3}"
+          + (f" (JAX package's bf16 band: max {BF16_BAND['max']}, mean "
+             f"{BF16_BAND['mean']}, share > 3 {BF16_BAND['share_gt3']})"
+             if mode == "bf16" else ""))
+    if n_tot == 0:
+        raise AssertionError(f"{label}: no ML bytes")
+    if mode == "equal" and n_off:
+        raise AssertionError(f"{label}: {n_off} of {n_tot} ML bytes differ "
+                             f"(must be byte-equal)")
+    if mode == "contract" and (max_d > 1 or n_off > 0.05 * n_tot):
         raise AssertionError(f"{label}: ML max |diff| {max_d}, {n_off} of "
                              f"{n_tot} bytes off (contract: +-1, <= 5%)")
+    if mode in ("bf16", "bf16-gate") and (max_d > BF16_GATE[0]
+                                          or mean_d > BF16_GATE[1]):
+        raise AssertionError(f"{label}: ML max |diff| {max_d}, mean "
+                             f"{mean_d} (bench.py's bf16 gate: max "
+                             f"{BF16_GATE[0]}, mean {BF16_GATE[1]})")
+    if mode in ("bf16", "bf16-gate") and mean_d < BF16_FLOOR_MEAN:
+        raise AssertionError(f"{label}: ML mean |diff| {mean_d} under "
+                             f"{BF16_FLOOR_MEAN}: the run did not compute "
+                             f"in bf16")
+    if mode == "bf16-device" and (max_d > BF16_DEVICE[0]
+                                  or mean_d > BF16_DEVICE[1]):
+        raise AssertionError(f"{label}: ML max |diff| {max_d}, mean "
+                             f"{mean_d} (limit for bf16 on two devices: "
+                             f"max {BF16_DEVICE[0]}, mean {BF16_DEVICE[1]})")
+    if mode == "bf16" and (mean_d > BF16_BAND["mean"]
+                           or share_gt3 > BF16_BAND["share_gt3"]):
+        raise AssertionError(f"{label}: ML mean |diff| {mean_d}, share > 3 "
+                             f"{share_gt3}: wider than the JAX package's "
+                             f"bf16 band {BF16_BAND}")
 
 
 def kernel_wrappers():
@@ -666,37 +752,39 @@ def read_launches():
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
-def run_main(big, out, impl, td):
-    """One main-path run of `call` with gather_impl `impl`; every kernel's
+def run_main(big, out, label, fields, td):
+    """One main-path run of `call` with CallConfig `fields`; every kernel's
     count is set to 0 just before it and read just after.  Returns the
-    launch counts."""
+    launch counts and the run's stats JSON."""
     import torch
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
-    stats_json = os.path.join(td, f"stats.{impl}.json")
+    stats_json = os.path.join(td, f"stats.{label}.json")
     reset_launches()
     t0 = time.perf_counter()
-    stats = run_call(big, out, CallConfig(device="cuda", gather_impl=impl,
-                                          stats_json=stats_json))
+    stats = run_call(big, out, CallConfig(device="cuda", stats_json=stats_json,
+                                          **fields))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
     n_sites = sum(stats[c] for c in CONTEXTS)
     with open(stats_json) as f:
-        timers = json.load(f)["timers"]
-    print(f"[main {impl}] {stats['reads']} reads, {stats['bases']} bases, "
+        run = json.load(f)
+    run["sites_per_s"] = n_sites / secs
+    print(f"[main {label}] {stats['reads']} reads, {stats['bases']} bases, "
           f"{n_sites} sites ({', '.join(f'{c} {stats[c]}' for c in CONTEXTS)})"
           f" in {secs:.3f} s = {n_sites / secs:.1f} sites/s; launches "
           f"{launches}")
-    print(f"[main {impl}] engine timers (s): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in timers.items()))
+    print(f"[main {label}] engine timers (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in run["timers"].items())
+          + f"; schedule {run['schedule']}; config {run['config']}")
     recs = read_tags(out)
     n_ml = sum(len(ml) for _, _, ml, _ in recs if ml is not None)
     if len(recs) != 200 or any(mm is None for _, mm, _, _ in recs):
-        raise AssertionError(f"{impl} main path output lacks records or MM")
+        raise AssertionError(f"{label} main path output lacks records or MM")
     if n_ml != n_sites:
-        raise AssertionError(f"{impl}: ML holds {n_ml} probabilities for "
+        raise AssertionError(f"{label}: ML holds {n_ml} probabilities for "
                              f"{n_sites} sites")
-    return launches
+    return launches, run
 
 
 def run_microbench():
@@ -765,25 +853,38 @@ def main() -> int:
         make_bam(small, 4, 4000, seed=1)
         make_bam(big, 200, 15000, seed=0)
         # warm-up + the card side of phase 4 (cuDNN picks its algorithms)
-        for impl in GATHER_IMPLS:
-            run_call(small, os.path.join(td, f"small.{impl}.cuda.bam"),
-                     CallConfig(device="cuda", gather_impl=impl))
+        small_runs = {impl: dict(gather_impl=impl) for impl in GATHER_IMPLS}
+        small_runs["pallas-bf16"] = dict(gather_impl="pallas",
+                                         compute_dtype="bfloat16")
+        for label, fields in small_runs.items():
+            run_call(small, os.path.join(td, f"small.{label}.cuda.bam"),
+                     CallConfig(device="cuda", **fields))
 
         # -- phase 3: the main paths -------------------------------------
         launches = {}
-        path_kernels = {"pallas": ("group_windows_t",),
-                        "fused": ("fused_forward",), "slice": (),
-                        "folded": ()}
-        for impl, want in path_kernels.items():
-            got = run_main(big, os.path.join(td, f"big.{impl}.bam"), impl, td)
+        runs = {}
+        for label, (fields, want) in MAIN_RUNS.items():
+            got, runs[label] = run_main(
+                big, os.path.join(td, f"big.{label}.bam"), label, fields, td)
             for kernel in want:
                 if got[kernel] <= 0:
-                    return fail(f"the {impl} path launched {kernel} no time")
-                launches[kernel] = (got[kernel], f"call --gather-impl {impl}")
+                    return fail(f"the {label} run launched {kernel} no time")
+                if label in GATHER_IMPLS:
+                    launches[kernel] = (got[kernel],
+                                        f"call --gather-impl {label}")
             other = {k: v for k, v in got.items() if k not in want and v}
             if other:
-                return fail(f"the {impl} path launched another kernel "
+                return fail(f"the {label} run launched another kernel "
                             f"({other})")
+        sched = runs["pallas-forced"]["schedule"]
+        if not (sched["buffers"] > 1 and sched["carried_reads"] > 0
+                and sched["flushes"] > sched["buffers"]):
+            return fail(f"the forced schedule did not roll buffers over, "
+                        f"cut flushes and carry reads: {sched}")
+        if runs["pallas-bf16"]["config"]["compute_dtype"] != "bfloat16":
+            return fail("the bf16 run did not compute in bf16")
+        print("[main summary] sites/s: " + ", ".join(
+            f"{label} {run['sites_per_s']:.1f}" for label, run in runs.items()))
         got = run_microbench()
         for kernel in ("group_windows", "window_slices", "group_windows_t"):
             if got[kernel] <= 0:
@@ -793,17 +894,32 @@ def main() -> int:
                                 " (every variant, --nb 2)")
 
         # -- phase 4: parity ---------------------------------------------
-        for a, b in (("fused", "pallas"), ("slice", "pallas"),
-                     ("folded", "slice")):
+        for a, b, mode in (("fused", "pallas", "contract"),
+                           ("slice", "pallas", "contract"),
+                           ("folded", "slice", "contract"),
+                           ("pallas", "pallas-sync", "equal"),
+                           ("fused", "fused-sync", "equal"),
+                           ("pallas-forced", "pallas", "equal"),
+                           ("pallas-bf16", "pallas", "bf16-gate")):
             compare(os.path.join(td, f"big.{a}.bam"),
-                    os.path.join(td, f"big.{b}.bam"), f"{a}-vs-{b}")
-        for impl in GATHER_IMPLS:
-            run_call(small, os.path.join(td, f"small.{impl}.cpu.bam"),
-                     CallConfig(device="cpu", site_batch=512,
-                                gather_impl=impl))
-            compare(os.path.join(td, f"small.{impl}.cuda.bam"),
-                    os.path.join(td, f"small.{impl}.cpu.bam"),
-                    f"cuda-vs-cpu {impl}")
+                    os.path.join(td, f"big.{b}.bam"), f"{a}-vs-{b}", mode)
+        # bf16 against f32 on the input of the JAX package's band
+        check = os.path.join(td, "selfcheck.bam")
+        make_bam(check, 20, 5000, seed=7, composition=UNIFORM)
+        for dt in ("float32", "bfloat16"):
+            run_call(check, os.path.join(td, f"selfcheck.{dt}.bam"),
+                     CallConfig(device="cuda", site_batch=16384,
+                                gather_impl="pallas", compute_dtype=dt))
+        compare(os.path.join(td, "selfcheck.bfloat16.bam"),
+                os.path.join(td, "selfcheck.float32.bam"),
+                "pallas-bf16-vs-pallas on the self-check input", "bf16")
+        for label, fields in small_runs.items():
+            run_call(small, os.path.join(td, f"small.{label}.cpu.bam"),
+                     CallConfig(device="cpu", site_batch=512, **fields))
+            compare(os.path.join(td, f"small.{label}.cuda.bam"),
+                    os.path.join(td, f"small.{label}.cpu.bam"),
+                    f"cuda-vs-cpu {label}",
+                    "bf16-device" if "bf16" in label else "contract")
 
     for row in rows:
         if row["name"] in launches:

@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-`call` is ported; it keeps the reference's short flags (mod_options.cpp)
-and adds `--device {cuda,cpu}`.  The JAX package's other subcommands are
+`call` is ported; it keeps the reference's short flags (mod_options.cpp),
+the JAX package's `--dtype`, `--sync-emit` and `--decode-workers`, and adds
+`--device {cuda,cpu}`.  The JAX package's other subcommands are
 listed and answer that they are not ported yet.
 """
 from __future__ import annotations
@@ -14,6 +15,9 @@ from .utils.logging import program_banner, program_info
 PROG = "hifimeth-tpu-torch"
 
 GATHER_IMPLS = ("auto", "slice", "folded", "pallas", "fused")
+#: --dtype spellings (the JAX CLI's) -> CallConfig.compute_dtype
+DTYPES = {"f32": "float32", "float32": "float32", "bf16": "bfloat16",
+          "bfloat16": "bfloat16"}
 NOT_YET_PORTED = ("pileup", "corr", "cov2bed", "sample", "eval",
                   "read-level-eval", "merge-shards", "merge-pileup-shards",
                   "import-model", "export-model", "extract-features", "train")
@@ -49,6 +53,12 @@ OPTIONS:
   --buffer-bases INT   packed plane-buffer capacity (default 2097152)
   --flush-bases INT    dispatch granularity in bases (0 = capacity)
   --stats-json PATH    write run stats as JSON
+  --dtype {{f32,bf16}}   compute dtype of the CNN's convs and FCs (default
+                       f32; fused ignores bf16)
+  --sync-emit          dispatch, resolve and write on the main thread, one
+                       flush in flight (default: worker threads)
+  --decode-workers INT decode/site-scan prefetch threads
+                       (-1 auto = cores-1 capped at 4, default; 0 = inline)
   --device {{cuda,cpu}}  where the model runs (default cuda)
   --gather-impl {{auto,slice,folded,pallas,fused}}  per-site device path:
                        the window gather kernel + CNN (auto = pallas), one
@@ -65,7 +75,8 @@ def _parse_call(argv):
             "-s": "site_batch", "--site-batch": "site_batch",
             "-b": "read_batch_size", "--read-batch-size": "read_batch_size",
             "-t": "io_threads", "--threads": "io_threads",
-            "--buffer-bases": "buffer_bases", "--flush-bases": "flush_bases"}
+            "--buffer-bases": "buffer_bases", "--flush-bases": "flush_bases",
+            "--decode-workers": "decode_workers"}
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -77,6 +88,10 @@ def _parse_call(argv):
             raise SystemExit(0)
         if a in ("-k", "--keep-kinetics"):
             kw["keep_kinetics"] = True
+            i += 1
+            continue
+        if a == "--sync-emit":
+            kw["async_emit"] = False
             i += 1
             continue
         if a.startswith("-") and len(a) > 1 and i + 1 >= len(argv):
@@ -94,6 +109,11 @@ def _parse_call(argv):
             if not sel or any(c not in name_map for c in sel):
                 raise SystemExit(f"Illegal argument to option '-c': {argv[i + 1]}")
             kw["contexts"] = tuple(name_map[c] for c in sel)
+        elif a == "--dtype":
+            if argv[i + 1] not in DTYPES:
+                raise SystemExit(f"Illegal argument to option '--dtype': "
+                                 f"{argv[i + 1]} (expected f32|bf16)")
+            kw["compute_dtype"] = DTYPES[argv[i + 1]]
         elif a == "--stats-json":
             kw["stats_json"] = argv[i + 1]
         elif a == "--device":
@@ -150,6 +170,9 @@ def main(argv=None) -> int:
         "io_threads": cfg.io_threads,
         "device": cfg.device,
         "gather_impl": cfg.gather_impl,
+        "compute_dtype": cfg.compute_dtype,
+        "async_emit": int(cfg.async_emit),
+        "decode_workers": cfg.decode_workers,
         "input": pos[0],
         "output": pos[1],
     })

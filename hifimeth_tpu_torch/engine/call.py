@@ -2,15 +2,15 @@
 
 The call pipeline of the reference `hifimeth call` (mod_main.cpp:303-412),
 run on a GPU.  Reads are decoded and packed host-side into a flat (5, cap)
-u8 plane buffer; each flush ships the buffer's filled prefix to the device
-once, featurizes it once into an (8, cap) table (amortized over the ~100
-overlapping windows per base), plans position-sorted sites into groups, and
-calls every candidate site of a context in fixed-size batches: through the
-window-gather kernel and the context's CNN (`gather_impl` "pallas", the
-default), through the fused kernel that runs gather and CNN per site in
-one launch ("fused"), or through the JAX package's XLA gathers, plain
-PyTorch indexing into an (N, 8) table ("slice") or its (N/16, 128) fold
-("folded"), each followed by the CNN.  Output records keep input order.
+u8 plane buffer; the device featurizes the packed planes once into an
+(8, cap) table (amortized over the ~100 overlapping windows per base),
+position-sorted sites are planned into groups, and every candidate site of
+a context is called in fixed-size batches: through the window-gather kernel
+and the context's CNN (`gather_impl` "pallas", the default), through the
+fused kernel that runs gather and CNN per site in one launch ("fused"), or
+through the JAX package's XLA gathers, plain PyTorch indexing into an
+(N, 8) table ("slice") or its (N/16, 128) fold ("folded"), each followed by
+the CNN.  Output records keep input order.
 
 Behavioral parity with the reference:
  - reads shorter than min_read_size or without kinetics pass through
@@ -19,15 +19,35 @@ Behavioral parity with the reference:
    series before MM/ML construction (mod_main.cpp:228-253)
  - kinetics tags are stripped unless keep_kinetics (mod_main.cpp:119-143)
 
-The engine is synchronous: one flush stays in flight on the device while the
-host decodes and packs the next, and is resolved (D2H + MM/ML build + write)
-when the next flush has been dispatched.
+The pipeline is the JAX engine's (hifimeth_tpu/engine/call.py):
+ 1. decode: `_DecodePrefetcher` threads run decode_read and the site scan
+    ahead of the packer, in input order (`decode_workers`);
+ 2. pack (the caller's thread): reads pack into the plane buffer; on the
+    planned paths (pallas, fused) each finished 1/H2D_SEGMENTS segment of
+    the buffer ships to the card at once, through a pinned staging buffer
+    on a copy stream, so each segment crosses PCIe once per buffer;
+    fill-through flushes are cut at the last shipped segment
+    (`segment_align`) and reads past it carry over to the next flush;
+ 3. dispatch worker: featurize the flush's segments, plan the groups and
+    launch every batch on the engine's compute stream, queue the results'
+    copies to pinned host memory, record the flush's event;
+ 4. resolve worker: wait for that event, scatter and unsort the probs;
+ 5. emit worker: MM/ML build and the ordered BAM write (`sink`).
+Each queue holds at most `queue_depth` flushes.  The first worker exception
+stops the pipeline's work and is raised on the caller's thread.  With
+`async_emit` off (CLI --sync-emit), or without a sink, stages 3-5 run on the
+caller's thread with one flush in flight, resolved when the next one has
+been dispatched.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
+import queue
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -49,9 +69,12 @@ from ..ops.fused import KMER as FUSED_KMER
 from ..ops.fused import call_sites_fused, prepare_fused_params
 from ..ops.gather import (BLOCK_LANES, GROUP, PLAN_EXTENT, check_plan,
                           plan_groups)
-from ..utils.logging import bytes_to_datasize, format_with_commas, log
+from ..utils.logging import bytes_to_datasize, format_with_commas, log, warn
 
 PROG = "hifimeth-tpu-torch"
+
+#: CallConfig.compute_dtype names -> torch dtypes
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def default_model_dir() -> str:
@@ -70,6 +93,11 @@ class CallConfig:
     buffer_bases: int = 1 << 21          # packed plane-buffer capacity
     flush_bases: int = 768 << 10         # dispatch once this many bases are
                                          # packed (0 = buffer_bases)
+    flush_ramp: tuple = (1 << 17, 1 << 18)
+                                         # the first flushes' thresholds
+                                         # (planned paths), so the card
+                                         # starts while the host still packs
+                                         # its first buffer; () disables
     keep_kinetics: bool = False
     read_batch_size: int = 10000         # stats/progress granularity
     io_threads: int = 8                  # BGZF codec pool (sam_batch.hpp:19)
@@ -79,9 +107,137 @@ class CallConfig:
                                          # + CNN; "fused": one kernel for
                                          # both; "slice" | "folded": indexing
                                          # gathers + CNN
+    compute_dtype: str = "float32"       # or "bfloat16": convs and FCs in
+                                         # bf16 (ignored by "fused")
+    decode_workers: int = -1             # decode + site-scan threads ahead of
+                                         # the packer (-1 auto: cores-1,
+                                         # at least 1, at most 4; 0 inline)
+    async_emit: bool = True              # dispatch/resolve/emit worker
+                                         # threads (needs CallEngine.sink)
+    queue_depth: int = 2                 # flushes each pipeline queue holds
+    segment_align: bool = True           # cut fill-through flushes at the
+                                         # last shipped segment (planned
+                                         # paths); False ships the segment
+                                         # in progress with every flush
 
     def resolve_model_dir(self) -> str:
         return self.model_dir or default_model_dir()
+
+
+#: sentinel for add_read's `decoded` argument ("compute inline")
+_UNSET = object()
+
+
+class _DecodePrefetcher:
+    """Runs decode_read + scan_all for upcoming records on worker threads,
+    in input order, so the packing thread only packs planes and flushes.
+
+    A feeder thread drains the record stream; `workers` decode threads tag
+    results with the input index; iterating reorders them through a dict,
+    so output order always equals input order.  Yields (rec, (read, found))
+    pairs for CallEngine.add_read.  A worker's exception is raised by the
+    iterator.  Worker decode/site-scan seconds accumulate in
+    t_decode/t_sites.  `close` stops and joins every thread."""
+
+    _DONE = object()
+
+    def __init__(self, stream, min_read_size: int, workers: int = 1,
+                 depth: int = 64):
+        self.min_read_size = min_read_size
+        self.workers = max(1, workers)
+        self.t_decode = 0.0
+        self.t_sites = 0.0
+        self._exc = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._inq = queue.Queue(maxsize=depth)
+        self._outq = queue.Queue(maxsize=depth + self.workers + 2)
+        self._threads = [threading.Thread(target=self._feeder, args=(stream,),
+                                          name="hifimeth-feed", daemon=True)]
+        self._threads += [
+            threading.Thread(target=self._worker, name=f"hifimeth-decode{i}",
+                             daemon=True) for i in range(self.workers)]
+        for t in self._threads:
+            t.start()
+
+    def _fail(self, e: BaseException):
+        """Keep the first exception (raised by __iter__) and stop reading."""
+        with self._lock:
+            if self._exc is None:
+                self._exc = e
+        self._stop.set()
+
+    def _feeder(self, stream):
+        try:
+            for i, rec in enumerate(stream):
+                if self._stop.is_set():
+                    break
+                self._inq.put((i, rec))
+        except BaseException as e:  # noqa: BLE001 - raised by __iter__
+            self._fail(e)
+        finally:
+            for _ in range(self.workers):
+                self._inq.put(self._DONE)
+
+    def _worker(self):
+        # a worker consumes its queue to the end whatever happens, so the
+        # feeder never blocks on a full queue and close() always returns
+        t_dec = t_sit = 0.0
+        while True:
+            item = self._inq.get()
+            if item is self._DONE:
+                break
+            if self._stop.is_set():
+                continue
+            i, rec = item
+            try:
+                read = found = None
+                if rec.l_seq >= self.min_read_size:
+                    t0 = time.perf_counter()
+                    read = decode_read(rec)
+                    t1 = time.perf_counter()
+                    t_dec += t1 - t0
+                    if read is not None:
+                        found = sitefind.scan_all(read.seq)
+                        t_sit += time.perf_counter() - t1
+            except BaseException as e:  # noqa: BLE001 - raised by __iter__
+                self._fail(e)
+                continue
+            self._outq.put((i, rec, (read, found)))
+        with self._lock:
+            self.t_decode += t_dec
+            self.t_sites += t_sit
+        self._outq.put(self._DONE)
+
+    def __iter__(self):
+        done = 0
+        nxt = 0
+        held: dict = {}
+        while done < self.workers or held:
+            if self._exc is not None:
+                raise self._exc
+            if done < self.workers:
+                item = self._outq.get()
+                if item is self._DONE:
+                    done += 1
+                    continue
+                i, rec, decoded = item
+                held[i] = (rec, decoded)
+            while nxt in held:
+                yield held.pop(nxt)
+                nxt += 1
+        if self._exc is not None:
+            raise self._exc
+
+    def close(self):
+        """Stop reading, let every thread run out, join them."""
+        self._stop.set()
+        while any(t.is_alive() for t in self._threads):
+            with contextlib.suppress(queue.Empty):
+                while True:
+                    self._outq.get_nowait()
+            for t in self._threads:
+                t.join(timeout=0.01)
 
 
 @dataclass
@@ -90,6 +246,40 @@ class _PendingRead:
     fwd_seq: np.ndarray | None = None    # set iff the read was called
     # per-context site slices into the flush's site arrays
     site_slices: dict = field(default_factory=dict)
+    start: int = 0                       # packed lanes [start, extent)
+    extent: int = 0
+
+
+class _PinnedPool:
+    """Page-locked host buffers for the engine's copies, reused: a buffer
+    comes back with the event of the last copy that reads or writes it and
+    is handed out again only once that event has completed, so no buffer is
+    rewritten under a copy in flight and none is allocated per flush.
+    Buffers come in power-of-two byte sizes; the pool keeps every buffer it
+    made until the engine goes, at most about one per copy in flight."""
+
+    def __init__(self):
+        self._free: list = []            # (uint8 buffer, event | None)
+        self._lock = threading.Lock()
+
+    def take(self, shape, dtype: torch.dtype):
+        """(buffer, view of `shape` and `dtype` into it)."""
+        n = math.prod(shape) * dtype.itemsize
+        size = 1 << max(12, (n - 1).bit_length())
+        buf = None
+        with self._lock:
+            for i, (b, ev) in enumerate(self._free):
+                if b.numel() == size and (ev is None or ev.query()):
+                    buf = self._free.pop(i)[0]
+                    break
+        if buf is None:
+            with torch.inference_mode():
+                buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        return buf, buf[:n].view(dtype).view(shape)
+
+    def give(self, buf: torch.Tensor, event=None):
+        with self._lock:
+            self._free.append((buf, event))
 
 
 #: gather paths of the group plan (the rest index per site: slice, folded)
@@ -106,12 +296,20 @@ def resolve_gather_impl(name: str) -> str:
     return name
 
 
+def resolve_decode_workers(n: int) -> int:
+    """-1 -> min(4, max(1, physical cores - 1)); n >= 0 stays."""
+    if n < 0:
+        from ..utils.system import physical_core_count
+        return min(4, max(1, physical_core_count() - 1))
+    return n
+
+
 class ModelSet:
     """Per-context DNAModNet modules on the device, plus the window size;
     with `fused`, each context's weights also packed for the fused kernel."""
 
     def __init__(self, model_dir: str, contexts, device: torch.device,
-                 fused: bool = False):
+                 fused: bool = False, compute_dtype=torch.float32):
         self.models = {}
         self.fused = {}
         self.kmer = KMER_SIZE
@@ -127,7 +325,7 @@ class ModelSet:
             path = os.path.join(model_dir, f"{ctx}.npz")
             if not os.path.exists(path):
                 raise FileNotFoundError(f"model file {path} not found")
-            self.models[ctx] = load_model_npz(path, device)
+            self.models[ctx] = load_model_npz(path, device, compute_dtype)
             if fused:
                 self.fused[ctx] = prepare_fused_params(self.models[ctx],
                                                        device, self.kmer)
@@ -137,6 +335,8 @@ class ModelSet:
 class CallEngine:
     #: allowed per-flush batch counts (see _decompose_batches)
     _BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+    #: the plane buffer ships to the card in this many segments
+    H2D_SEGMENTS = 8
 
     def __init__(self, cfg: CallConfig):
         # resolved values live on a private copy: the caller's config is
@@ -144,23 +344,114 @@ class CallEngine:
         # 128-lane aligned bases inside the table.
         cfg = dataclasses.replace(
             cfg, buffer_bases=-(-cfg.buffer_bases // 128) * 128,
-            gather_impl=resolve_gather_impl(cfg.gather_impl))
+            gather_impl=resolve_gather_impl(cfg.gather_impl),
+            flush_ramp=tuple(cfg.flush_ramp))
         if cfg.site_batch < GROUP or cfg.site_batch % GROUP:
             raise ValueError(f"site_batch must be a positive multiple of "
                              f"{GROUP}, got {cfg.site_batch}")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; "
+                             f"choose float32 or bfloat16")
+        if not isinstance(cfg.queue_depth, int) or cfg.queue_depth < 1:
+            raise ValueError(f"queue_depth must be an integer >= 1, got "
+                             f"{cfg.queue_depth!r}")
+        if cfg.decode_workers < -1:
+            raise ValueError(f"decode_workers must be >= -1, got "
+                             f"{cfg.decode_workers}")
+        if any(int(r) < 1 for r in cfg.flush_ramp):
+            raise ValueError(f"flush_ramp steps must be positive, got "
+                             f"{cfg.flush_ramp}")
+        if cfg.gather_impl == "fused" and cfg.compute_dtype != "float32":
+            # the JAX engine's warning (its fused kernel runs the MXU's
+            # default precision); the port's computes in 3xTF32
+            warn("--dtype bf16 has no effect with gather_impl=fused "
+                 "(the fused kernel computes every product in 3xTF32)")
+            cfg = dataclasses.replace(cfg, compute_dtype="float32")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        self._compute = self._copy = None
         if self.device.type == "cuda":
             exact_float32()
+            # the dispatch stage launches on _compute; plane segments ship
+            # on _copy, so their copies overlap the previous flush's kernels
+            self._compute = torch.cuda.Stream(self.device)
+            self._copy = torch.cuda.Stream(self.device)
         self.models = ModelSet(cfg.resolve_model_dir(), cfg.contexts,
-                               self.device, fused=cfg.gather_impl == "fused")
+                               self.device, fused=cfg.gather_impl == "fused",
+                               compute_dtype=self.compute_dtype)
         self.kmer = self.models.kmer
+        self.pinned = _PinnedPool()
+        #: record sink of the async pipeline (run_call: the BAM writer)
+        self.sink = None
         self._inflight = None
+        self._threads: list = []
+        self._dispatch_q = self._resolve_q = self._emit_q = None
+        self._exc = None
+        self._exc_lock = threading.Lock()
+        #: the flush schedule: flushes dispatched with packed reads (the
+        #: ramp's index), plane buffers filled, reads carried by a cut
+        self.flushes = 0
+        self.buffers = 0
+        self.carried = 0
         self.stats = {ctx: 0 for ctx in cfg.contexts}
         self.stats.update(reads=0, bases=0, called_reads=0)
+        # seconds per stage; in async mode dispatch, resolve and mmbuild
+        # run on their own threads and overlap the rest
         self.timers = {"decode": 0.0, "sites": 0.0, "pack": 0.0,
-                       "dispatch": 0.0, "resolve": 0.0, "mmbuild": 0.0}
+                       "flush": 0.0, "dispatch": 0.0, "resolve": 0.0,
+                       "mmbuild": 0.0}
         self._reset_buffer()
+
+    # -- device context ------------------------------------------------------
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Inference mode, and on the card its device and the compute
+        stream: each of them is per thread, so every thread that touches
+        the device enters this."""
+        with contextlib.ExitStack() as st:
+            st.enter_context(torch.inference_mode())
+            if self.device.type == "cuda":
+                st.enter_context(torch.cuda.device(self.device))
+                st.enter_context(torch.cuda.stream(self._compute))
+            yield
+
+    def _ship(self, piece: np.ndarray):
+        """A (5, seg) plane piece to the device: on the card through a
+        pinned staging buffer and the copy stream, returning (tensor, the
+        copy's event); on the CPU a copy (tensor, None)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(piece.copy()), None
+        buf, host = self.pinned.take(piece.shape, torch.uint8)
+        np.copyto(host.numpy(), piece)
+        with torch.inference_mode(), torch.cuda.stream(self._copy):
+            dev = torch.empty(piece.shape, dtype=torch.uint8,
+                              device=self.device)
+            dev.copy_(host, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._copy)
+        self.pinned.give(buf, ev)
+        return dev, ev
+
+    def _h2d(self, a: np.ndarray, hold: list) -> torch.Tensor:
+        """A host array to the device on the current stream, through a
+        pinned buffer (put in `hold` until the flush's event)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(a))
+        buf, host = self.pinned.take(a.shape, torch.from_numpy(a[:0]).dtype)
+        np.copyto(host.numpy(), a)
+        hold.append(buf)
+        return host.to(self.device, non_blocking=True)
+
+    def _to_host(self, probs: torch.Tensor):
+        """Queue a device result's copy into a pinned buffer (done at the
+        flush's event); returns (buffer or None, host tensor).  CPU
+        results pass through."""
+        if self.device.type != "cuda":
+            return None, probs
+        buf, host = self.pinned.take(probs.shape, probs.dtype)
+        host.copy_(probs, non_blocking=True)
+        return buf, host
 
     # -- packing -----------------------------------------------------------
     def _reset_buffer(self):
@@ -175,28 +466,38 @@ class CallEngine:
         # padding (eval_kmer_features.cpp:40) without a per-site mask
         self._gap = self.kmer // 2 + 16
         self._fill = self._margin
+        self.buffers += 1
+        self._seg_size = cap // self.H2D_SEGMENTS
+        #: the buffer's finished segments on the device, (tensor, event)
+        self._segments: list = []
         self._reset_flush_state()
 
     def _reset_flush_state(self):
         """Start a new flush within the current buffer: pending reads and
-        site lists reset; the packed planes persist (fill-through)."""
+        site lists reset; the packed planes and shipped segments persist
+        (fill-through)."""
         self._last_flush_fill = self._fill
         self._pending: list[_PendingRead] = []
         self._sites = {ctx: {"centers": [], "strands": [], "rstart": [],
                              "rend": []}
                        for ctx in self.cfg.contexts}
 
-    def add_read(self, rec: BamRecord, out: list):
-        """Queue one record; finished records are appended to `out` in
-        input order."""
+    def add_read(self, rec: BamRecord, out: list, decoded=_UNSET):
+        """Queue one record; finished records go to `out` (sync mode) or
+        the sink (async mode) in input order.  `decoded` optionally carries
+        the (read, site-scan) pair a _DecodePrefetcher worker computed."""
         self.stats["reads"] += 1
         self.stats["bases"] += rec.l_seq
         if rec.l_seq < self.cfg.min_read_size:
             self._pending.append(_PendingRead(rec))
             return
-        t0 = time.perf_counter()
-        read = decode_read(rec)
-        self.timers["decode"] += time.perf_counter() - t0
+        found = None
+        if decoded is _UNSET:
+            t0 = time.perf_counter()
+            read = decode_read(rec)
+            self.timers["decode"] += time.perf_counter() - t0
+        else:
+            read, found = decoded
         if read is None:
             self._pending.append(_PendingRead(rec))
             return
@@ -209,14 +510,18 @@ class CallEngine:
         # they flush only when it is exhausted (the JAX engine's schedule)
         planned = self.cfg.gather_impl in _PLANNED_GATHERS
         fb = (self.cfg.flush_bases if planned else 0) or cap
+        ramp = self.cfg.flush_ramp
+        if planned and self.flushes < len(ramp):
+            fb = min(fb, ramp[self.flushes])
         packed = self._fill - self._last_flush_fill
         if self._fill + read.size > cap - self._margin:
             # buffer exhausted: flush whatever is pending, start a new one
             self.flush(out)
             self._reset_buffer()
         elif packed > 0 and packed + read.size > fb:
-            # fill-through flush: keep packing into the same buffer
-            self.flush(out)
+            # fill-through flush: keep packing into the same buffer, whose
+            # shipped segments the next flushes reuse
+            self.flush(out, defer_tail=True)
         t0 = time.perf_counter()
         start = self._fill
         end = start + read.size
@@ -226,11 +531,16 @@ class CallEngine:
         self._planes[3, start:end] = read.ri
         self._planes[4, start:end] = read.rp
         self._fill = end + self._gap
+        if planned:
+            # ship the segments this read finished, overlapping the copy
+            # with the host's work on the next reads
+            self._ship_segments(self._fill // self._seg_size)
         self.timers["pack"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        pend = _PendingRead(rec, fwd_seq=read.seq)
-        found = sitefind.scan_all(read.seq)
+        pend = _PendingRead(rec, fwd_seq=read.seq, start=start, extent=end)
+        if found is None:
+            found = sitefind.scan_all(read.seq)
         for ctx in self.cfg.contexts:
             offs, strands = found[ctx]
             s = self._sites[ctx]
@@ -245,7 +555,17 @@ class CallEngine:
         self.stats["called_reads"] += 1
         self._pending.append(pend)
 
-    # -- device flush ------------------------------------------------------
+    def _ship_segments(self, n_seg: int):
+        """Ship plane segments [len(shipped), n_seg).  A segment ships only
+        once every read in it is packed (reads pack forward only), so later
+        packing never races its copy."""
+        n_seg = min(n_seg, self.H2D_SEGMENTS)
+        seg = self._seg_size
+        while len(self._segments) < n_seg:
+            a = len(self._segments) * seg
+            self._segments.append(self._ship(self._planes[:, a:a + seg]))
+
+    # -- flush -------------------------------------------------------------
     @classmethod
     def _bucket_batches(cls, nb: int) -> int:
         for b in cls._BUCKETS:
@@ -275,41 +595,165 @@ class CallEngine:
             chunks.append(cls._bucket_batches(nb - b))
         return chunks
 
-    def flush(self, out: list):
-        """Dispatch the pending reads' sites; resolve the previous flush."""
+    def flush(self, out: list, defer_tail: bool = False):
+        """Snapshot the pending reads and their sites and hand them down
+        the pipeline (async mode), or dispatch them here and resolve the
+        previous flush (sync mode).
+
+        `defer_tail` (fill-through flushes of the planned paths, with
+        segment_align): cut the flush at the last shipped segment - reads
+        whose data reaches past it carry over to the next flush - so the
+        payload is the segments already on the device.  Until one packed
+        read clears a segment boundary the flush waits for the next read;
+        a flush of the ramp does not wait, and ships the segment in
+        progress instead (the JAX engine skipped its first ramp step
+        whenever that step was below one segment)."""
         t0 = time.perf_counter()
+        planned = self.cfg.gather_impl in _PLANNED_GATHERS
+        carry = None
+        if (defer_tail and planned and self.cfg.segment_align
+                and self._fill > self._last_flush_fill):
+            carry = self._split_tail()
+            if carry is None and self.flushes >= len(self.cfg.flush_ramp):
+                return
+        work = None
+        if any(p.fwd_seq is not None for p in self._pending):
+            if planned:
+                self._ship_segments(self._fill // self._seg_size)
+                payload = list(self._segments)
+                k = len(payload)
+                if carry is None and k < self.H2D_SEGMENTS and \
+                        self._fill > k * self._seg_size:
+                    # the segment in progress, shipped for this flush only:
+                    # it ships again, whole, when its last read is packed
+                    a = k * self._seg_size
+                    payload.append(self._ship(
+                        self._planes[:, a:a + self._seg_size]))
+                work = ("segments", payload, self._sites)
+            else:
+                work = ("planes", self._planes[:, :self._fill], self._sites)
+            self.flushes += 1
         pending = self._pending
-        futures = None
-        if any(p.fwd_seq is not None for p in pending):
-            futures = self._dispatch(self._planes[:, :self._fill], self._sites)
         self._reset_flush_state()
-        self.timers["dispatch"] += time.perf_counter() - t0
+        if carry is not None:
+            self._restore_tail(carry)
+
+        if self._async_active():
+            self._ensure_pipeline()
+            self._check_exc()
+            self._dispatch_q.put((pending, work))
+            self.timers["flush"] += time.perf_counter() - t0
+            return
+        self.timers["flush"] += time.perf_counter() - t0
+        futures = None
+        if work is not None:
+            with self._on_device():
+                futures = self._dispatch_work(work)
         prev, self._inflight = self._inflight, (pending, futures)
         if prev is not None:
             self._emit(prev, out)
 
-    def _dispatch(self, prefix: np.ndarray, sites: dict):
-        """Ship + featurize the filled plane prefix, enqueue every
-        context's batches; returns the flush's futures."""
-        with torch.inference_mode():
-            planes = torch.from_numpy(np.ascontiguousarray(prefix))
-            planes = planes.to(self.device)
-            cap = self.cfg.buffer_bases
-            if self.cfg.gather_impl in _PLANNED_GATHERS:
-                table = featurize_planes_t_seg(planes, cap)
-            else:
-                table = featurize_planes_seg(planes, cap)
-                if self.cfg.gather_impl == "folded":
-                    table = fold_table(table)
-            futures = {ctx: self._call_context(ctx, table, sites[ctx])
-                       for ctx in self.cfg.contexts}
+    def _split_tail(self):
+        """Segment-aligned fill-through cut (see flush).
+
+        Reads pack at increasing offsets, so the pends whose packed data
+        reaches past the last shipped segment (extent > boundary) are a
+        suffix of the pending list; their per-context site arrays are the
+        trailing entries of the flush's site lists (one array per packed
+        read per context).  A kept read's windows may still reach kmer//2
+        past its extent, but only into the inter-read gap, whose features
+        are zero - as the unshipped tail of the table is.  Splits both in
+        place and returns the carried (pends, site arrays) for
+        _restore_tail; ([], None) when nothing defers; None when no packed
+        read would be kept."""
+        seg = self._seg_size
+        boundary = min(self._fill // seg, self.H2D_SEGMENTS) * seg
+        cut = None
+        for i, p in enumerate(self._pending):
+            if p.fwd_seq is not None and p.extent > boundary:
+                cut = i
+                break
+        if cut is None:
+            return ([], None)
+        kept = self._pending[:cut]
+        if not any(p.fwd_seq is not None for p in kept):
+            return None
+        deferred = self._pending[cut:]
+        n_def = sum(1 for p in deferred if p.fwd_seq is not None)
+        arrays = {}
+        for ctx in self.cfg.contexts:
+            s = self._sites[ctx]
+            arrays[ctx] = {}
+            for k in s:
+                keep_n = len(s[k]) - n_def
+                arrays[ctx][k] = s[k][keep_n:]
+                del s[k][keep_n:]
+        self._pending = kept
+        return (deferred, arrays)
+
+    def _restore_tail(self, carry):
+        """Re-seed the new flush with the reads _split_tail carried: their
+        site arrays lead its lists (same buffer, so offsets stay valid and
+        position-sorted), each pend's site_slices re-based to the new
+        cumulative offsets, and the flush's packed count starts at the
+        first carried read, so the next fill-through trigger counts the
+        carried bases."""
+        pends, arrays = carry
+        if not pends:
+            return
+        for ctx in self.cfg.contexts:
+            s = self._sites[ctx]
+            for k in s:
+                s[k].extend(arrays[ctx][k])
+        cum = {ctx: 0 for ctx in self.cfg.contexts}
+        for p in pends:
+            if p.fwd_seq is None:
+                continue
+            for ctx in self.cfg.contexts:
+                lo, hi, offs, strands = p.site_slices[ctx]
+                p.site_slices[ctx] = (cum[ctx], cum[ctx] + hi - lo, offs,
+                                      strands)
+                cum[ctx] += hi - lo
+        self._pending.extend(pends)
+        self._last_flush_fill = min(p.start for p in pends
+                                    if p.fwd_seq is not None)
+        self.carried += sum(p.fwd_seq is not None for p in pends)
+
+    # -- dispatch ----------------------------------------------------------
+    def _dispatch_work(self, work):
+        """Featurize a flush's planes and launch every context's batches on
+        the current stream (inside _on_device); returns (futures, event):
+        the event marks the flush's results in host memory."""
+        t0 = time.perf_counter()
+        kind, payload, sites = work
+        cap = self.cfg.buffer_bases
+        hold: list = []
+        if kind == "segments":
+            segs = []
+            for t, ev in payload:
+                if ev is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ev)
+                    t.record_stream(stream)
+                segs.append(t)
+            table = featurize_planes_t_seg(segs, cap)
+        else:
+            table = featurize_planes_seg(self._h2d(payload, hold), cap)
+            if self.cfg.gather_impl == "folded":
+                table = fold_table(table)
+        per_ctx = {ctx: self._call_context(ctx, table, sites[ctx], hold)
+                   for ctx in self.cfg.contexts}
         done = None
         if self.device.type == "cuda":
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(blocking=True)
             done.record(torch.cuda.current_stream(self.device))
-        return futures, done
+            for buf in hold:
+                self.pinned.give(buf, done)
+        self.timers["dispatch"] += time.perf_counter() - t0
+        return per_ctx, done
 
-    def _call_context(self, ctx: str, table: torch.Tensor, s: dict):
+    def _call_context(self, ctx: str, table: torch.Tensor, s: dict,
+                      hold: list):
         """Plan groups of GROUP position-sorted sites whose windows fit one
         block and call them; returns (n_sites, streams, order).
 
@@ -322,7 +766,7 @@ class CallEngine:
         if n == 0:
             return n, None, None
         if self.cfg.gather_impl not in _PLANNED_GATHERS:
-            return self._call_context_batched(ctx, table, s, centers)
+            return self._call_context_batched(ctx, table, s, centers, hold)
         strands = np.concatenate(s["strands"])
         if n > 1 and not np.all(centers[:-1] <= centers[1:]):
             order = np.argsort(centers, kind="stable")
@@ -373,16 +817,17 @@ class CallEngine:
                 # windows whose prob slots are dropped at resolve
                 b128 = np.concatenate([b128, np.zeros(pad_g, np.int32)])
                 rels = np.concatenate([rels, np.zeros((pad_g, GROUP), np.int32)])
-            bases_d = torch.from_numpy(b128).to(self.device)
-            rels_d = torch.from_numpy(np.ascontiguousarray(rels)).to(self.device)
+            bases_d = self._h2d(b128.astype(np.int32), hold)
+            rels_d = self._h2d(rels.astype(np.int32), hold)
             parts = [call(bases_d[b * ngrp:(b + 1) * ngrp],
                           rels_d[b * ngrp:(b + 1) * ngrp], rev)
                      for b in range(nb)]
-            results.append((self._to_host(torch.cat(parts)), idx, sel, ng))
+            results.append((self._to_host(torch.cat(parts)), idx, sel,
+                            ng))
         return n, results, order
 
     def _call_context_batched(self, ctx: str, table: torch.Tensor, s: dict,
-                              centers: np.ndarray):
+                              centers: np.ndarray, hold: list):
         """The slice/folded paths: every site in input order, padded with
         center-0 sites (empty read bounds, so zero windows whose probs are
         dropped at resolve) to the batch decomposition, called one bucket
@@ -395,7 +840,7 @@ class CallEngine:
         arrays = [np.concatenate([a, np.zeros(pad, a.dtype)]) for a in (
             centers, np.concatenate(s["strands"]),
             np.concatenate(s["rstart"]), np.concatenate(s["rend"]))]
-        dev = [torch.from_numpy(a).to(self.device) for a in arrays]
+        dev = [self._h2d(a, hold) for a in arrays]
         model = self.models.models[ctx]
         parts, o = [], 0
         for k in chunks:
@@ -406,22 +851,7 @@ class CallEngine:
             o += k
         return n, [(self._to_host(torch.cat(parts)), None, None, n)], None
 
-    def _to_host(self, probs: torch.Tensor) -> torch.Tensor:
-        """Enqueue the copy of a device result into pinned host memory (the
-        flush's event marks it done); CPU results pass through."""
-        if self.device.type != "cuda":
-            return probs
-        host = torch.empty(probs.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(probs, non_blocking=True)
-        return host
-
-    def finalize(self, out: list):
-        """Flush any packed reads and resolve everything in flight."""
-        self.flush(out)
-        prev, self._inflight = self._inflight, None
-        if prev is not None:
-            self._emit(prev, out)
-
+    # -- resolve and emit --------------------------------------------------
     def _emit(self, inflight, out: list):
         pending, futures = inflight
         self._build_emit(pending, self._resolve(futures), out)
@@ -429,7 +859,8 @@ class CallEngine:
     def _resolve(self, futures):
         """Wait for a flush's device results; scatter each stream's slots
         back to site order (padded slots duplicate a real site -> same
-        value), then unsort."""
+        value), then unsort.  The pinned result buffers go back to the
+        pool once read."""
         t0 = time.perf_counter()
         probs = {ctx: np.empty(0, np.uint8) for ctx in self.cfg.contexts}
         if futures is not None:
@@ -440,7 +871,7 @@ class CallEngine:
                 if streams is None:
                     continue
                 sorted_probs = np.empty(n, np.uint8)
-                for part, idx, sel, ng in streams:
+                for (buf, part), idx, sel, ng in streams:
                     flat = part.numpy()
                     m = n if sel is None else len(sel)
                     if idx is None:
@@ -449,9 +880,11 @@ class CallEngine:
                         sp = np.empty(m, np.uint8)
                         sp[idx.ravel()] = flat[:ng * idx.shape[1]]
                     if sel is None:
-                        sorted_probs = sp
+                        sorted_probs[:] = sp
                     else:
                         sorted_probs[sel] = sp
+                    if buf is not None:
+                        self.pinned.give(buf)
                 if order is None:
                     probs[ctx] = sorted_probs
                 else:
@@ -487,6 +920,106 @@ class CallEngine:
             out.append(rec)
         self.timers["mmbuild"] += time.perf_counter() - t0
 
+    # -- async pipeline ----------------------------------------------------
+    def _async_active(self) -> bool:
+        return self.cfg.async_emit and self.sink is not None
+
+    def _fail(self, e: BaseException):
+        with self._exc_lock:
+            if self._exc is None:
+                self._exc = e
+
+    def _check_exc(self):
+        if self._exc is not None:
+            raise self._exc
+
+    def _ensure_pipeline(self):
+        if self._threads:
+            return
+        depth = self.cfg.queue_depth
+        self._dispatch_q = queue.Queue(maxsize=depth)
+        self._resolve_q = queue.Queue(maxsize=depth)
+        self._emit_q = queue.Queue(maxsize=depth)
+        self._threads = [
+            threading.Thread(target=fn, name=f"hifimeth-{name}", daemon=True)
+            for fn, name in ((self._dispatch_worker, "dispatch"),
+                             (self._resolve_worker, "resolve"),
+                             (self._emit_worker, "emit"))]
+        for t in self._threads:
+            t.start()
+
+    def _dispatch_worker(self):
+        """Stage 2: featurize + plan + launch on the compute stream."""
+        with self._on_device():
+            while True:
+                item = self._dispatch_q.get()
+                if item is None:
+                    self._resolve_q.put(None)
+                    return
+                pending, work = item
+                futures = None
+                try:
+                    if self._exc is None and work is not None:
+                        futures = self._dispatch_work(work)
+                except BaseException as e:  # noqa: BLE001 - raised on the caller
+                    self._fail(e)
+                self._resolve_q.put((pending, futures))
+
+    def _resolve_worker(self):
+        """Stage 3: wait for the flush's event, unsort."""
+        while True:
+            item = self._resolve_q.get()
+            if item is None:
+                self._emit_q.put(None)
+                return
+            pending, futures = item
+            probs = None
+            try:
+                if self._exc is None:
+                    probs = self._resolve(futures)
+            except BaseException as e:  # noqa: BLE001 - raised on the caller
+                self._fail(e)
+            self._emit_q.put((pending, probs))
+
+    def _emit_worker(self):
+        """Stage 4: MM/ML build + the ordered record sink."""
+        while True:
+            item = self._emit_q.get()
+            if item is None:
+                return
+            pending, probs = item
+            try:
+                if self._exc is None and probs is not None:
+                    local: list = []
+                    self._build_emit(pending, probs, local)
+                    for rec in local:
+                        self.sink(rec)
+            except BaseException as e:  # noqa: BLE001 - raised on the caller
+                self._fail(e)
+
+    def finalize(self, out: list):
+        """Flush any packed reads and drain the pipeline (or resolve the
+        flush in flight); raises a worker's exception."""
+        self.flush(out)
+        if self._threads:
+            self.close()
+            self._check_exc()
+            return
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            self._emit(prev, out)
+
+    def close(self):
+        """Stop the worker threads after the flushes already queued and
+        join them.  Workers skip their work once one has failed, so the
+        queues always drain."""
+        if not self._threads:
+            return
+        self._dispatch_q.put(None)
+        for t in self._threads:
+            t.join()
+        self._threads = []
+
     def log_timers(self):
         parts = ", ".join(f"{k}={v:.2f}s" for k, v in self.timers.items())
         print(f"[engine timers] {parts}", file=sys.stderr)
@@ -514,12 +1047,22 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
     reader = BamReader(in_bam, threads=cfg.io_threads)
     header = reader.header.with_pg_line(PROG, __version__, cmdline)
     writer = BamWriter(out_bam, header, threads=cfg.io_threads)
+    # async mode: the emit worker writes the records
+    engine.sink = writer.write
+    n_workers = resolve_decode_workers(cfg.decode_workers)
+    prefetch = None
     try:
+        if n_workers > 0:
+            prefetch = _DecodePrefetcher(reader, cfg.min_read_size,
+                                         workers=n_workers)
+            pairs = iter(prefetch)
+        else:
+            pairs = ((rec, _UNSET) for rec in reader)
         done: list[BamRecord] = []
         next_log = cfg.read_batch_size
         batch_snap = dict(engine.stats)
-        for rec in reader:
-            engine.add_read(rec, done)
+        for rec, decoded in pairs:
+            engine.add_read(rec, done, decoded=decoded)
             if engine.stats["reads"] >= next_log:
                 # per-batch stats in the reference's format
                 # (mod_main.cpp:364-379)
@@ -536,6 +1079,13 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
         for r in done:
             writer.write(r)
     finally:
+        if prefetch is not None:
+            prefetch.close()
+            # worker seconds overlap the main thread; they are folded in
+            # so the timers still attribute decode and site-scan cost
+            engine.timers["decode"] += prefetch.t_decode
+            engine.timers["sites"] += prefetch.t_sites
+        engine.close()
         writer.close()
         reader.close()
 
@@ -548,8 +1098,14 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
         with open(cfg.stats_json, "w") as f:
             json.dump({"stats": {k: int(v) for k, v in s.items()},
                        "timers": engine.timers,
+                       "schedule": {"flushes": engine.flushes,
+                                    "buffers": engine.buffers,
+                                    "carried_reads": engine.carried},
                        "config": {"contexts": list(cfg.contexts),
+                                  "compute_dtype": engine.cfg.compute_dtype,
                                   "site_batch": cfg.site_batch,
                                   "gather_impl": engine.cfg.gather_impl,
+                                  "async_emit": engine.cfg.async_emit,
+                                  "decode_workers": n_workers,
                                   "device": str(engine.device)}}, f, indent=1)
     return s

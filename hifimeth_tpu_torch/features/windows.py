@@ -46,25 +46,43 @@ def featurize_planes_t(planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def featurize_planes_t_seg(prefix: torch.Tensor, cap: int) -> torch.Tensor:
-    """Featurize the filled (5, m) prefix of the plane buffer into an
-    (8, cap) table whose tail [m, cap) is zero - what the packer's 255/0
-    fill featurizes to - so the result equals featurize_planes_t over the
-    whole (5, cap) buffer."""
-    m = prefix.shape[1]
+def featurize_planes_t_seg(segments, cap: int) -> torch.Tensor:
+    """Featurize the (5, w_i) plane pieces the engine shipped, which cover
+    a prefix of the (5, cap) plane buffer in order, into an (8, cap) table
+    whose tail past them is zero - what the packer's 255/0 fill featurizes
+    to - so the result equals featurize_planes_t over the whole buffer."""
+    if not segments:
+        raise ValueError("no plane segments to featurize")
+    m = sum(s.shape[1] for s in segments)
     if m > cap:
-        raise ValueError(f"prefix of {m} lanes exceeds capacity {cap}")
-    out = torch.zeros((8, cap), dtype=torch.float32, device=prefix.device)
-    _featurize_into(prefix, out[:, :m])
+        raise ValueError(f"segments of {m} lanes exceed capacity {cap}")
+    planes = segments[0] if len(segments) == 1 else torch.cat(segments, 1)
+    out = torch.empty((8, cap), dtype=torch.float32, device=planes.device)
+    out[:, m:].zero_()
+    _featurize_into(planes, out[:, :m])
     return out
+
+
+_LUTS: dict = {}
+
+
+def _codev1_lut(device: torch.device) -> torch.Tensor:
+    """CODEV1_TO_FRAME_NORM on `device`, copied there once per process (the
+    copy is waited for, so any stream may read the table at once)."""
+    lut = _LUTS.get(device)
+    if lut is None:
+        lut = _CODEV1_NORM.to(device)
+        if lut.is_cuda:
+            torch.cuda.synchronize(device)
+        _LUTS[device] = lut
+    return lut
 
 
 def _featurize_into(planes: torch.Tensor, out: torch.Tensor) -> None:
     codes = planes[0]
     arange = torch.arange(4, dtype=codes.dtype, device=codes.device)
     out[:4] = codes[None, :] == arange[:, None]
-    lut = _CODEV1_NORM.to(planes.device)
-    out[4:] = lut[planes[1:5].to(torch.int64)]
+    out[4:] = _codev1_lut(planes.device)[planes[1:5].to(torch.int64)]
 
 
 def featurize_planes(planes: torch.Tensor) -> torch.Tensor:
@@ -77,7 +95,7 @@ def featurize_planes_seg(prefix: torch.Tensor, cap: int) -> torch.Tensor:
     """Featurize the filled (5, m) prefix of the plane buffer into a
     (cap, 8) table whose tail [m, cap) is zero: the transpose of
     featurize_planes_t_seg's table."""
-    return featurize_planes_t_seg(prefix, cap).T.contiguous()
+    return featurize_planes_t_seg([prefix], cap).T.contiguous()
 
 
 def featurize_planes_folded(planes: torch.Tensor,
@@ -194,10 +212,13 @@ def call_sites_group(model: DNAModNet, table: torch.Tensor,
                      bases: torch.Tensor, rels: torch.Tensor, rev: bool,
                      kmer: int = KMER_SIZE) -> torch.Tensor:
     """One batch of planned groups -> (ng*G,) u8 scaled probs in slot order.
+    The windows come out of the gather in the model's compute dtype, as the
+    JAX package's call_sites_pallas asks group_windows_t for them.
 
     No per-site read-bounds mask: the engine packs reads with a >= kmer//2
     zero-feature gap, so window lanes past a read's edge read exact zeros
     from the table, the reference's window zero padding
     (eval_kmer_features.cpp:40)."""
-    w = group_windows_t(table, bases, rels, rev=rev, kmer=kmer)
+    w = group_windows_t(table, bases, rels, rev=rev, kmer=kmer,
+                        out_dtype=model.compute_dtype)
     return logits_to_scaled_probs(model(w))

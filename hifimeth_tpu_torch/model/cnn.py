@@ -18,6 +18,20 @@ about three decimal digits and would move the u8 probabilities by more than
 the +-1 the parity contract allows (docs/PARITY.md).  `exact_float32()`
 turns TF32 off for cuDNN convolutions and cuBLAS matrix products; the call
 engine applies it before it runs a model on the GPU.
+
+bfloat16 (`set_compute_dtype`, CLI --dtype bf16) follows the JAX package's
+dnamodnet_apply: bn0 in float32 and the result rounded to bf16; each conv
+and FC takes bf16 operands and accumulates in float32; bias and ReLU run in
+float32 and the result is rounded to bf16; the logits come out in float32.
+A bf16 conv1d in PyTorch returns a bf16 sum, which the bias and ReLU after
+it would round a second time.  So the convs and FCs take float32 tensors
+that hold bf16 values (activations and weights rounded to bf16) and return
+the float32 sum, on the same float32 ops as the float32 path (no TF32):
+the product of two bf16 values is exact in float32 (8 + 8 significand
+bits), so every product is exact and the sums accumulate in float32.
+Each layer rounds once, after its ReLU.  The FC outputs stay float32 up to
+their bias, as in the JAX engine's compiled programs; JAX's eager
+dnamodnet_apply rounds them to bf16 first.
 """
 from __future__ import annotations
 
@@ -122,18 +136,21 @@ class _Conv(nn.Module):
         # with the device on every call
         self.stride, self.lo, self.hi = (int(v) for v in geometry)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor,
+                weight: torch.Tensor | None = None) -> torch.Tensor:
+        w = self.weight if weight is None else weight
         if self.lo == self.hi:
-            h = F.conv1d(h, self.weight, self.bias, stride=self.stride,
+            h = F.conv1d(h, w, self.bias, stride=self.stride,
                          padding=self.lo)
         else:
-            h = F.conv1d(F.pad(h, (self.lo, self.hi)), self.weight,
-                         self.bias, stride=self.stride)
+            h = F.conv1d(F.pad(h, (self.lo, self.hi)), w, self.bias,
+                         stride=self.stride)
         return F.relu(h)
 
 
 class DNAModNet(nn.Module):
-    """(B, 8, kmer) float32 windows (NCW) -> (B, 2) float32 logits."""
+    """(B, 8, kmer) windows (NCW, float32 or the compute dtype) -> (B, 2)
+    float32 logits."""
 
     def __init__(self, conv_shapes, geometries, fc1_in: int, fc1_out: int,
                  n_out: int = 2):
@@ -144,6 +161,23 @@ class DNAModNet(nn.Module):
             for (cout, cin, k), geom in zip(conv_shapes, geometries))
         self.fc1 = nn.Linear(fc1_in, fc1_out)
         self.fc2 = nn.Linear(fc1_out, n_out)
+        self.compute_dtype = torch.float32
+        self._low: tuple = ()            # bf16 mode's weights, see below
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "DNAModNet":
+        """float32 or bfloat16 (see the module notes).  bf16 keeps, beside
+        the float32 parameters, every conv and FC weight rounded to bf16
+        (stored as float32), so call it after moving the module to its
+        device."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype must be float32 or bfloat16, "
+                             f"got {dtype}")
+        self.compute_dtype = dtype
+        self._low = () if dtype == torch.float32 else (
+            [c.weight.detach().to(dtype).float() for c in self.convs],
+            self.fc1.weight.detach().to(dtype).float(),
+            self.fc2.weight.detach().to(dtype).float())
+        return self
 
     @classmethod
     def from_state_dict(cls, sd: dict[str, torch.Tensor]) -> "DNAModNet":
@@ -158,17 +192,27 @@ class DNAModNet(nn.Module):
         return model.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.bn0(x)
-        for conv in self.convs:
-            h = conv(h)
-        h = F.relu(self.fc1(h.flatten(1)))
-        return self.fc2(h)
+        if self.compute_dtype == torch.float32:
+            h = self.bn0(x)
+            for conv in self.convs:
+                h = conv(h)
+            h = F.relu(self.fc1(h.flatten(1)))
+            return self.fc2(h)
+        cd = self.compute_dtype
+        w_convs, w_fc1, w_fc2 = self._low
+        h = self.bn0(x.float()).to(cd).float()
+        for conv, w in zip(self.convs, w_convs):
+            h = conv(h, w).to(cd).float()
+        h = F.relu(F.linear(h.flatten(1), w_fc1, self.fc1.bias))
+        return F.linear(h.to(cd).float(), w_fc2, self.fc2.bias)
 
 
-def load_model_npz(path: str, device: torch.device) -> DNAModNet:
+def load_model_npz(path: str, device: torch.device,
+                   compute_dtype: torch.dtype = torch.float32) -> DNAModNet:
     """Shipped `models/<ctx>.npz` -> DNAModNet on `device`."""
     return DNAModNet.from_state_dict(
-        params_from_jax(load_params_npz(path))).to(device)
+        params_from_jax(load_params_npz(path))).to(device).set_compute_dtype(
+            compute_dtype)
 
 
 def logits_to_scaled_probs(logits: torch.Tensor) -> torch.Tensor:

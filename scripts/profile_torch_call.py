@@ -5,23 +5,32 @@ Runs the port's run_call on the chip_smoke.py main-path input (200 reads x
 15 kb, random seed-0 kinetics, shipped models, default batch and buffer
 sizes) through one per-site path (--gather-impl: "pallas", the gather
 kernel + cuDNN CNN; "fused", the fused kernel; "slice" or "folded", the
-indexing gathers + cuDNN CNN), once plain to time it and once under
-torch.profiler, and prints:
- - wall seconds and sites/s of the plain run;
+indexing gathers + cuDNN CNN), through the asynchronous pipeline or, with
+--sync-emit, on the caller's thread, in --dtype f32 or bf16, with
+--decode-workers threads (default -1, the engine's auto rule), --reps
+times plain to time it (default 1) and once under torch.profiler (device
+activity only, so the host pays no per-op tracing cost), and prints:
+ - wall seconds, sites/s and the engine's timers of each plain run, and
+   the median sites/s over the runs;
  - device time by kernel class (the gather kernel, the fused kernel,
    convolutions, matrix products, PyTorch indexing (the slice/folded
    gathers), elementwise/other kernels, memory copies), summed over the
-   profiled run, and the device's busy share of that run's wall time.
+   profiled run, and the device's busy share of that run's wall time (the
+   union of its kernels' and copies' intervals on every stream).
 
 Usage (on a machine with a CUDA device):
     python3 scripts/profile_torch_call.py [--gather-impl pallas|fused|slice|folded]
+        [--sync-emit] [--dtype f32|bf16] [--decode-workers N] [--reps N]
         [--out DIR]
+To compare settings, run the script once per setting in one session, the
+settings in turns, so that drift on the host spreads over all of them.
 With --out, the JSON summary is also written to
-DIR/profile_summary.<gather-impl>.json.
+DIR/profile_summary.<gather-impl>[.sync][.bf16][.w<N>].json.
 """
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -53,8 +62,18 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gather-impl", default="pallas",
                     choices=("pallas", "fused", "slice", "folded"))
+    ap.add_argument("--sync-emit", action="store_true")
+    ap.add_argument("--dtype", default="f32", choices=("f32", "bf16"))
+    ap.add_argument("--decode-workers", type=int, default=-1)
+    ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
+    if args.reps < 1:
+        ap.error("--reps must be at least 1")
+    label = (args.gather_impl + (".sync" if args.sync_emit else "")
+             + (".bf16" if args.dtype == "bf16" else "")
+             + (f".w{args.decode_workers}" if args.decode_workers >= 0
+                else ""))
 
     import torch
     if not torch.cuda.is_available():
@@ -69,23 +88,38 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
-    cfg = CallConfig(gather_impl=args.gather_impl)
     with tempfile.TemporaryDirectory() as td:
+        stats_json = os.path.join(td, "stats.json")
+        cfg = CallConfig(gather_impl=args.gather_impl,
+                         async_emit=not args.sync_emit,
+                         compute_dtype={"f32": "float32",
+                                        "bf16": "bfloat16"}[args.dtype],
+                         decode_workers=args.decode_workers,
+                         stats_json=stats_json)
         small, big = os.path.join(td, "small.bam"), os.path.join(td, "big.bam")
         make_bam(small, 4, 4000, seed=1)
         make_bam(big, 200, 15000, seed=0)
         out = os.path.join(td, "out.bam")
         run_call(small, out, cfg)                          # warm-up
-        t0 = time.perf_counter()
-        stats = run_call(big, out, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        sites = sum(stats[c] for c in ("CpG", "CHG", "CHH"))
-        print(f"[plain run, {args.gather_impl}] {sites} sites in {wall:.3f} s = "
-              f"{sites / wall:.1f} sites/s")
+        runs = []
+        for rep in range(args.reps):
+            t0 = time.perf_counter()
+            stats = run_call(big, out, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sites = sum(stats[c] for c in ("CpG", "CHG", "CHH"))
+            with open(stats_json) as f:
+                timers = json.load(f)["timers"]
+            runs.append({"wall_s": wall, "sites_per_s": sites / wall,
+                         "timers": timers})
+            print(f"[plain run {rep}, {label}] {sites} sites in {wall:.3f} s"
+                  f" = {sites / wall:.1f} sites/s; engine timers (s): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in timers.items()))
+        median = statistics.median(r["sites_per_s"] for r in runs)
+        print(f"[plain runs, {label}] median of {args.reps}: {median:.1f} "
+              f"sites/s")
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run_call(big, out, cfg)
             torch.cuda.synchronize()
@@ -93,31 +127,44 @@ def main() -> int:
 
     by_class: dict = {}
     by_kernel: dict = {}
-    busy_us = 0.0
+    spans = []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = ev.time_range.elapsed_us()
-        busy_us += us
+        spans.append((ev.time_range.start, ev.time_range.end))
         c = kernel_class(ev.name)
         by_class[c] = by_class.get(c, 0.0) + us
         by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + us
+    # busy = the union of the intervals: a copy on the copy stream that
+    # overlaps a kernel counts once
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    sum_us = sum(by_class.values())
     print(f"[profiled run] wall {pwall:.3f} s, device busy "
           f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / pwall:.1f}% "
           f"of wall (idle {100 - 100 * busy_us / 1e6 / pwall:.1f}%)")
     for c, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {c:<20} {us / 1e3:10.3f} ms  {100 * us / busy_us:5.1f}%")
+        print(f"  {c:<20} {us / 1e3:10.3f} ms  {100 * us / sum_us:5.1f}%")
     print("  top kernels:")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:10.3f} ms  {name[:110]}")
-    summary = {"card": card, "gather_impl": args.gather_impl, "sites": sites, "wall_s": wall,
-               "sites_per_s": sites / wall, "profiled_wall_s": pwall,
+    summary = {"card": card, "gather_impl": args.gather_impl,
+               "sync_emit": args.sync_emit, "dtype": args.dtype,
+               "decode_workers": args.decode_workers,
+               "sites": sites, "plain_runs": runs,
+               "median_sites_per_s": median,
+               "profiled_wall_s": pwall,
                "device_busy_s": busy_us / 1e6,
+               "device_idle_share": 1 - busy_us / 1e6 / pwall,
                "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()}}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, f"profile_summary."
-                               f"{args.gather_impl}.json"), "w") as f:
+        with open(os.path.join(args.out, f"profile_summary.{label}.json"),
+                  "w") as f:
             json.dump(summary, f, indent=1)
     print(json.dumps(summary))
     return 0

@@ -34,7 +34,10 @@ def test_segmented_table_bit_equal_to_jax(n_seg):
     planes = _planes(np.random.default_rng(n_seg), n_seg * seg)
     segments = tuple(planes[:, i * seg:(i + 1) * seg] for i in range(n_seg))
     want = np.asarray(jax_seg(segments, cap=cap))
-    got = featurize_planes_t_seg(torch.from_numpy(planes), cap).numpy()
+    got = featurize_planes_t_seg([torch.from_numpy(s.copy()) for s in segments],
+                                 cap).numpy()
     assert got.shape == (8, cap)
     np.testing.assert_array_equal(got, want)
     assert not got[:, n_seg * seg:].any()
+    with pytest.raises(ValueError):
+        featurize_planes_t_seg([torch.from_numpy(planes)], n_seg * seg - 1)
