@@ -50,7 +50,21 @@ Phases (any failure exits non-zero before the final line is printed):
     than that band (BENCH_r05.json: mean 0.62, 2.423% of bytes off by more
     than 3; its max of 10, one site's extreme, is printed beside the
     port's); and the card against the port's CPU run on a small input, for
-    every path and for bf16 (bf16 within max 10, mean 0.2).
+    every path and for bf16 (bf16 within max 10, mean 0.2);
+ 5. scale-out and quantification on the card, each call run with the
+    kernels' counts set to 0 just before it and read just after (pallas
+    runs must launch group_windows_t, slice runs no hand kernel):
+    `call --data-parallel` on the one card (the single-device path),
+    byte-equal to the pallas run, its sites/s beside it; the split over the
+    device list ["cuda:0", "cuda:0"] (two replicas with their own models,
+    segments, tables and streams) for pallas (byte-equal to one device)
+    and slice (parity contract); `run_call` on shards 0/2 and 1/2 of
+    50-read blocks then `merge_shard_bams` over the same blocks, byte-equal
+    to the unsharded run; a one-rank NCCL group whose
+    three collectives run on cuda tensors (the identity) and whose
+    `run_pileup_multihost` on the golden corpus merges to the golden BEDs;
+    and `pileup`, `cov2bed` and `corr` against the golden corpus.  The
+    phase prints its wall seconds.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  window_rows lies on no path of the
 repository: its `launches` are its phase-2 launches.
@@ -100,6 +114,9 @@ MAIN_RUNS = {
                            flush_bases=48 << 10, decode_workers=3),
                       ("group_windows_t",)),
 }
+#: reads per round-robin block of phase 5's shard runs: 200 reads make 4
+#: blocks, 2 per shard
+SHARD_BLOCK = 50
 #: the JAX package's bf16 band against its float32 (BENCH_r05.json), taken
 #: by bench.py's self-check on its input (20 reads x 5 kb, uniform, seed 7,
 #: site_batch 16384): max and mean |diff| of the ML bytes and the share off
@@ -752,17 +769,18 @@ def read_launches():
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
-def run_main(big, out, label, fields, td):
-    """One main-path run of `call` with CallConfig `fields`; every kernel's
-    count is set to 0 just before it and read just after.  Returns the
-    launch counts and the run's stats JSON."""
+def run_main(big, out, label, fields, td, devices=None):
+    """One main-path run of `call` with CallConfig `fields` (and the
+    engine's device list `devices`); every kernel's count is set to 0 just
+    before it and read just after.  Returns the launch counts and the run's
+    stats JSON."""
     import torch
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
     stats_json = os.path.join(td, f"stats.{label}.json")
     reset_launches()
     t0 = time.perf_counter()
     stats = run_call(big, out, CallConfig(device="cuda", stats_json=stats_json,
-                                          **fields))
+                                          **fields), devices=devices)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
@@ -801,6 +819,170 @@ def run_microbench():
     print(f"[microbench] every variant in {time.perf_counter() - t0:.3f} s; "
           f"launches {launches}")
     return launches
+
+
+def record_bytes(path):
+    from hifimeth_tpu_torch.io.bam import BamReader
+    return [rec.to_bytes() for rec in BamReader(path)]
+
+
+def same_records(path_a, path_b, label):
+    """Every record of two outputs byte-equal, in order (the headers' @PG
+    command lines may differ)."""
+    a, b = record_bytes(path_a), record_bytes(path_b)
+    if not a or a != b:
+        raise AssertionError(f"{label}: {len(a)} and {len(b)} records, not "
+                             f"byte-equal")
+    print(f"[{label}] {len(a)} records byte-equal")
+
+
+def check_launches(label, got, want):
+    """A phase-5 call run launched each kernel of `want` and no other."""
+    for kernel in want:
+        if got[kernel] <= 0:
+            raise AssertionError(f"the {label} run launched {kernel} no time")
+    other = {k: v for k, v in got.items() if k not in want and v}
+    if other:
+        raise AssertionError(f"the {label} run launched another kernel "
+                             f"({other})")
+
+
+def same_golden_beds(prefix, label):
+    for ctx in CONTEXTS:
+        with open(f"{prefix}.{ctx}.cov.bed", "rb") as f:
+            got = f.read()
+        with open(os.path.join(ROOT, "tests", "data",
+                               f"golden_pileup.{ctx}.cov.bed"), "rb") as f:
+            want = f.read()
+        if got != want:
+            raise AssertionError(f"{label}: {ctx} BED differs from the "
+                                 f"golden corpus")
+    print(f"[{label}] CpG/CHG/CHH BEDs byte-equal to the golden corpus")
+
+
+def phase_scale_out(big, td, runs):
+    """Phase 5 (see the module notes); `runs` holds phase 3's stats."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from hifimeth_tpu_torch.engine.call import CallConfig, run_call
+    from hifimeth_tpu_torch.parallel import collectives
+    from hifimeth_tpu_torch.parallel.dist import ShardSpec, merge_shard_bams
+    from hifimeth_tpu_torch.quant.pileup import (merge_pileup_shards,
+                                                 run_pileup,
+                                                 run_pileup_multihost)
+    from hifimeth_tpu_torch.tools.corr import run_corr
+    from hifimeth_tpu_torch.tools.cov2bed import run_cov2bed
+
+    t_phase = time.perf_counter()
+    data = os.path.join(ROOT, "tests", "data")
+    pallas = os.path.join(td, "big.pallas.bam")
+
+    def out(name):
+        return os.path.join(td, f"big.{name}.bam")
+
+    # call --data-parallel on the one card: the single-device path
+    got, run = run_main(big, out("dp"), "pallas-data-parallel",
+                        dict(gather_impl="pallas", data_parallel=True), td)
+    check_launches("pallas-data-parallel", got, ("group_windows_t",))
+    if run["config"]["devices"] != ["cuda:0"]:
+        raise AssertionError(f"--data-parallel on one card ran over "
+                             f"{run['config']['devices']}")
+    same_records(out("dp"), pallas, "pallas-data-parallel-vs-pallas")
+    print(f"[scale-out] sites/s: pallas {runs['pallas']['sites_per_s']:.1f},"
+          f" pallas --data-parallel (one card) {run['sites_per_s']:.1f}")
+    # the split over two replicas on the one card
+    for impl, kernels in (("pallas", ("group_windows_t",)), ("slice", ())):
+        label = f"{impl}-split"
+        got, run = run_main(big, out(label), label, dict(
+            gather_impl=impl, data_parallel=True), td,
+            devices=["cuda:0", "cuda:0"])
+        check_launches(label, got, kernels)
+        if run["config"]["devices"] != ["cuda:0", "cuda:0"]:
+            raise AssertionError(f"{label} ran over "
+                                 f"{run['config']['devices']}")
+        if impl == "pallas":
+            same_records(out(label), pallas, f"{label}-vs-pallas")
+        else:
+            compare(out(label), out("slice"), f"{label}-vs-slice")
+        print(f"[scale-out] {label} sites/s {run['sites_per_s']:.1f}")
+    # shards 0/2 and 1/2 of SHARD_BLOCK-read blocks, then their merge
+    sharded = out("sharded")
+    for pid in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        run_call(big, sharded, CallConfig(device="cuda"),
+                 shard=ShardSpec(pid, 2, batch_size=SHARD_BLOCK))
+        torch.cuda.synchronize()
+        got = read_launches()
+        check_launches(f"shard {pid}/2", got, ("group_windows_t",))
+        print(f"[scale-out] call shard {pid}/2 in "
+              f"{time.perf_counter() - t0:.3f} s; launches {got}")
+    merge_shard_bams(out("merged"), [sharded + ".shard0000",
+                                     sharded + ".shard0001"],
+                     batch_size=SHARD_BLOCK)
+    same_records(out("merged"), pallas, "shards-merged-vs-pallas")
+    # a one-rank NCCL group: the collectives on the card, pileup over it
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        import numpy as np
+        if collectives._group_device().type != "cuda":
+            raise AssertionError("the NCCL group's tensors are not on the "
+                                 "card")
+        rng = np.random.default_rng(0)
+        bins = rng.integers(0, 1 << 40, (3, 256))
+        flags = rng.integers(0, 2, 9)
+        parts = [rng.integers(0, 1 << 20, 1 << 22).astype(np.int32)
+                 for _ in range(3)]
+        if not (np.array_equal(collectives.psum_histograms_multihost(bins),
+                               bins)
+                and np.array_equal(collectives.psum_i64_multihost(flags),
+                                   flags)
+                and all(np.array_equal(g, w) for g, w in zip(
+                    collectives.psum_site_partials_multihost(*parts),
+                    parts))):
+            raise AssertionError("a one-rank NCCL collective is not the "
+                                 "identity")
+        print("[scale-out] NCCL (one rank): int64 SUM (3, 256) and (9,), "
+              "int32 SUM (2, 4 Mi) and MAX (4 Mi) on cuda tensors: identity")
+        prefix = os.path.join(td, "mh")
+        res = run_pileup_multihost(
+            os.path.join(data, "golden_ref.fa"),
+            os.path.join(data, "golden_mapped.bam"), prefix,
+            ShardSpec(0, 1), spill_dir=td)
+        merge_pileup_shards(prefix, 1)
+        same_golden_beds(prefix, f"pileup over NCCL ({res['bed_rows']} rows)")
+    finally:
+        dist.destroy_process_group()
+    # the host tools against the golden corpus
+    prefix = os.path.join(td, "one")
+    run_pileup(os.path.join(data, "golden_ref.fa"),
+               os.path.join(data, "golden_mapped.bam"), prefix, spill_dir=td)
+    same_golden_beds(prefix, "pileup")
+    for ctx in CONTEXTS:
+        bed = os.path.join(td, f"c.{ctx}.bed")
+        run_cov2bed(os.path.join(data, "golden_ref.fa"), ctx,
+                    os.path.join(data, "golden_bismark.cov"), bed)
+        with open(bed, "rb") as f, open(os.path.join(
+                data, f"golden_cov2bed.{ctx}.bed"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"cov2bed {ctx} differs from the "
+                                     f"golden corpus")
+    r = run_corr(os.path.join(data, "golden_pileup.CpG.cov.bed"),
+                 os.path.join(data, "golden_cov2bed.CpG.bed"), min_cov=1)
+    with open(os.path.join(data, "golden_corr.txt")) as f:
+        if f"{r:.10f}\n" != f.read():
+            raise AssertionError(f"corr {r} differs from the golden corpus")
+    print("[scale-out] cov2bed CpG/CHG/CHH and corr equal to the golden "
+          "corpus")
+    print(f"[phase 5] scale-out and quantification in "
+          f"{time.perf_counter() - t_phase:.3f} s wall")
 
 
 def main() -> int:
@@ -920,6 +1102,9 @@ def main() -> int:
                     os.path.join(td, f"small.{label}.cpu.bam"),
                     f"cuda-vs-cpu {label}",
                     "bf16-device" if "bf16" in label else "contract")
+
+        # -- phase 5: scale-out and quantification -----------------------
+        phase_scale_out(big, td, runs)
 
     for row in rows:
         if row["name"] in launches:

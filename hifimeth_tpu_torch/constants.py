@@ -1,4 +1,4 @@
-"""Constants of the call path: base codes, codeV1 kinetics codec, contexts.
+"""Constants: base codes, codeV1 kinetics codec, contexts, CHH motifs.
 
 Semantics replicated from the reference implementation (cited per item,
 paths relative to its source tree):
@@ -75,3 +75,32 @@ CONTEXTS = ("CpG", "CHG", "CHH")
 
 # Model input geometry (reference: models/kmer.txt, sample_dataset.py:14-17).
 KMER_SIZE = 401
+
+# CHH motifs and their index tables (reference: 5mc_context.cpp:3-54), for
+# cov2bed's motif column.
+FWD_CHH_MOTIFS = ("CAA", "CCA", "CTA", "CAC", "CCC", "CTC", "CAT", "CCT", "CTT")
+REV_CHH_MOTIFS = ("TTG", "TGG", "TAG", "GTG", "GGG", "GAG", "ATG", "AGG", "AAG")
+
+
+def motif_hash(motif: str) -> int:
+    """2-bit hash of an ACGT motif (reference: 5mc_context.hpp:118-126)."""
+    h = 0
+    for ch in motif:
+        c = int(IUPACNA_TO_CODE[ord(ch)])
+        if c > 3:
+            raise ValueError(f"non-ACGT motif base {ch!r}")
+        h = (h << 2) | c
+    return h
+
+
+def _motif_idx_table(motifs) -> np.ndarray:
+    """motif hash -> index within the motif table (255 = invalid),
+    matching MethylationContext::get_*_motif_idx (5mc_context.cpp:29-54)."""
+    t = np.full(64, 255, dtype=np.uint8)
+    for i, m in enumerate(motifs):
+        t[motif_hash(m)] = i
+    return t
+
+
+FWD_CHH_IDX = _motif_idx_table(FWD_CHH_MOTIFS)
+REV_CHH_IDX = _motif_idx_table(REV_CHH_MOTIFS)

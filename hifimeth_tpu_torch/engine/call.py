@@ -38,6 +38,11 @@ stops the pipeline's work and is raised on the caller's thread.  With
 `async_emit` off (CLI --sync-emit), or without a sink, stages 3-5 run on the
 caller's thread with one flush in flight, resolved when the next one has
 been dispatched.
+
+Scale-out (parallel/): `data_parallel` splits every batch over a device
+list, each device with its own models, plane segments, table and streams,
+the results gathered back to the first device in site order; `run_call`
+with a multi-process ShardSpec calls only that process's read blocks.
 """
 from __future__ import annotations
 
@@ -58,9 +63,9 @@ from ..constants import CONTEXTS, FWD, KMER_SIZE
 from ..device import resolve_device
 from ..features import sites as sitefind
 from ..features.read_decode import decode_read
-from ..features.windows import (call_sites_batched, call_sites_group,
-                                featurize_planes_seg, featurize_planes_t_seg,
-                                fold_table)
+from ..features.windows import (call_sites_batched, call_sites_grid,
+                                call_sites_group, featurize_planes_seg,
+                                featurize_planes_t_seg, fold_table)
 from ..io import native
 from ..io.bam import BamReader, BamRecord, BamWriter
 from ..io.mmtags import build_mod_tags
@@ -69,6 +74,8 @@ from ..ops.fused import KMER as FUSED_KMER
 from ..ops.fused import call_sites_fused, prepare_fused_params
 from ..ops.gather import (BLOCK_LANES, GROUP, PLAN_EXTENT, check_plan,
                           plan_groups)
+from ..parallel.dist import ShardSpec, shard_path, sharded_read_stream
+from ..parallel.mesh import local_devices, resolve_devices
 from ..utils.logging import bytes_to_datasize, format_with_commas, log, warn
 
 PROG = "hifimeth-tpu-torch"
@@ -119,6 +126,8 @@ class CallConfig:
                                          # last shipped segment (planned
                                          # paths); False ships the segment
                                          # in progress with every flush
+    data_parallel: bool = False          # split each batch over every local
+                                         # device (pallas, slice, folded)
 
     def resolve_model_dir(self) -> str:
         return self.model_dir or default_model_dir()
@@ -252,14 +261,14 @@ class _PendingRead:
 
 class _PinnedPool:
     """Page-locked host buffers for the engine's copies, reused: a buffer
-    comes back with the event of the last copy that reads or writes it and
-    is handed out again only once that event has completed, so no buffer is
+    comes back with the events of the last copies that read or write it and
+    is handed out again only once they have completed, so no buffer is
     rewritten under a copy in flight and none is allocated per flush.
     Buffers come in power-of-two byte sizes; the pool keeps every buffer it
     made until the engine goes, at most about one per copy in flight."""
 
     def __init__(self):
-        self._free: list = []            # (uint8 buffer, event | None)
+        self._free: list = []            # (uint8 buffer, [events])
         self._lock = threading.Lock()
 
     def take(self, shape, dtype: torch.dtype):
@@ -268,8 +277,8 @@ class _PinnedPool:
         size = 1 << max(12, (n - 1).bit_length())
         buf = None
         with self._lock:
-            for i, (b, ev) in enumerate(self._free):
-                if b.numel() == size and (ev is None or ev.query()):
+            for i, (b, evs) in enumerate(self._free):
+                if b.numel() == size and all(ev.query() for ev in evs):
                     buf = self._free.pop(i)[0]
                     break
         if buf is None:
@@ -277,9 +286,13 @@ class _PinnedPool:
                 buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
         return buf, buf[:n].view(dtype).view(shape)
 
-    def give(self, buf: torch.Tensor, event=None):
+    def give(self, buf: torch.Tensor, events=()):
+        """Return `buf`, free once every event of `events` (an event or a
+        list of them) has completed."""
+        if isinstance(events, torch.cuda.Event):
+            events = [events]
         with self._lock:
-            self._free.append((buf, event))
+            self._free.append((buf, list(events)))
 
 
 #: gather paths of the group plan (the rest index per site: slice, folded)
@@ -305,7 +318,7 @@ def resolve_decode_workers(n: int) -> int:
 
 
 class ModelSet:
-    """Per-context DNAModNet modules on the device, plus the window size;
+    """Per-context DNAModNet modules on one device, plus the window size;
     with `fused`, each context's weights also packed for the fused kernel."""
 
     def __init__(self, model_dir: str, contexts, device: torch.device,
@@ -329,7 +342,8 @@ class ModelSet:
             if fused:
                 self.fused[ctx] = prepare_fused_params(self.models[ctx],
                                                        device, self.kmer)
-            log("loaded %s model from %s (kmer=%d)", ctx, path, self.kmer)
+            log("loaded %s model from %s (kmer=%d) on %s", ctx, path,
+                self.kmer, device)
 
 
 class CallEngine:
@@ -338,7 +352,11 @@ class CallEngine:
     #: the plane buffer ships to the card in this many segments
     H2D_SEGMENTS = 8
 
-    def __init__(self, cfg: CallConfig):
+    def __init__(self, cfg: CallConfig, devices=None):
+        """`devices` (not a CLI option): the device list a data-parallel
+        engine splits its batches over, default every local device of
+        cfg.device's type.  A device may repeat; each entry gets its own
+        models, plane segments, tables and streams."""
         # resolved values live on a private copy: the caller's config is
         # never mutated.  A 128-multiple capacity keeps the planner's
         # 128-lane aligned bases inside the table.
@@ -367,19 +385,37 @@ class CallEngine:
             warn("--dtype bf16 has no effect with gather_impl=fused "
                  "(the fused kernel computes every product in 3xTF32)")
             cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        if cfg.gather_impl == "fused" and cfg.data_parallel:
+            warn("--data-parallel is not supported with gather_impl=fused "
+                 "yet; running single-device")
+            cfg = dataclasses.replace(cfg, data_parallel=False)
+            if devices is not None:
+                cfg = dataclasses.replace(
+                    cfg, device=str(resolve_devices(devices)[0]))
+                devices = None
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.devices = self._device_list(cfg, devices)
+        self.device = self.devices[0]
+        if cfg.site_batch < len(self.devices):
+            raise ValueError(f"site_batch {cfg.site_batch} is smaller than "
+                             f"the {len(self.devices)} devices")
         self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
-        self._compute = self._copy = None
+        n_dev = len(self.devices)
+        self._computes = self._copies = [None] * n_dev
         if self.device.type == "cuda":
             exact_float32()
-            # the dispatch stage launches on _compute; plane segments ship
-            # on _copy, so their copies overlap the previous flush's kernels
-            self._compute = torch.cuda.Stream(self.device)
-            self._copy = torch.cuda.Stream(self.device)
-        self.models = ModelSet(cfg.resolve_model_dir(), cfg.contexts,
-                               self.device, fused=cfg.gather_impl == "fused",
-                               compute_dtype=self.compute_dtype)
+            # each device's dispatch work launches on its _computes stream;
+            # plane segments ship on its _copies stream, so their copies
+            # overlap the previous flush's kernels
+            self._computes = [torch.cuda.Stream(d) for d in self.devices]
+            self._copies = [torch.cuda.Stream(d) for d in self.devices]
+        #: one ModelSet per device: replicas never share a tensor
+        self.replicas = [
+            ModelSet(cfg.resolve_model_dir(), cfg.contexts, d,
+                     fused=cfg.gather_impl == "fused",
+                     compute_dtype=self.compute_dtype)
+            for d in self.devices]
+        self.models = self.replicas[0]
         self.kmer = self.models.kmer
         self.pinned = _PinnedPool()
         #: record sink of the async pipeline (run_call: the BAM writer)
@@ -403,45 +439,105 @@ class CallEngine:
                        "mmbuild": 0.0}
         self._reset_buffer()
 
+    @staticmethod
+    def _device_list(cfg: CallConfig, devices) -> list:
+        """The engine's devices: data-parallel, `devices` or every local
+        device of cfg.device's type (the JAX engine's rule: a split only
+        when there is more than one); else cfg.device alone."""
+        if not cfg.data_parallel:
+            if devices is not None:
+                raise ValueError("a device list needs data_parallel=True")
+            return [resolve_device(cfg.device)]
+        devs = (local_devices(cfg.device) if devices is None
+                else resolve_devices(devices))
+        if devs[0].type != torch.device(cfg.device).type:
+            raise ValueError(f"devices {devs} are not of cfg.device's type "
+                             f"{cfg.device!r}")
+        if len(devs) == 1:
+            log("data-parallel call: one local device, running the "
+                "single-device path")
+        else:
+            log("data-parallel call over %d devices (%s)", len(devs),
+                ", ".join(str(d) for d in devs))
+        return devs
+
     # -- device context ------------------------------------------------------
     @contextlib.contextmanager
     def _on_device(self):
-        """Inference mode, and on the card its device and the compute
-        stream: each of them is per thread, so every thread that touches
-        the device enters this."""
+        """Inference mode, and on the card the primary device and its
+        compute stream: each of them is per thread, so every thread that
+        touches the device enters this."""
         with contextlib.ExitStack() as st:
             st.enter_context(torch.inference_mode())
             if self.device.type == "cuda":
                 st.enter_context(torch.cuda.device(self.device))
-                st.enter_context(torch.cuda.stream(self._compute))
+                st.enter_context(torch.cuda.stream(self._computes[0]))
             yield
 
-    def _ship(self, piece: np.ndarray):
-        """A (5, seg) plane piece to the device: on the card through a
-        pinned staging buffer and the copy stream, returning (tensor, the
-        copy's event); on the CPU a copy (tensor, None)."""
+    def _stream(self, d: int):
+        """Device d's compute stream as the current stream (and its device
+        as the current device) on the card; nothing on the CPU."""
         if self.device.type != "cuda":
-            return torch.from_numpy(piece.copy()), None
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._computes[d])
+
+    def _ship(self, piece: np.ndarray) -> list:
+        """A (5, seg) plane piece to every device: on the card through one
+        pinned staging buffer and each device's copy stream, giving
+        [(tensor, the copy's event)] per device; on the CPU a copy per
+        device, [(tensor, None)]."""
+        if self.device.type != "cuda":
+            return [(torch.from_numpy(piece.copy()), None)
+                    for _ in self.devices]
         buf, host = self.pinned.take(piece.shape, torch.uint8)
         np.copyto(host.numpy(), piece)
-        with torch.inference_mode(), torch.cuda.stream(self._copy):
-            dev = torch.empty(piece.shape, dtype=torch.uint8,
-                              device=self.device)
-            dev.copy_(host, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self._copy)
-        self.pinned.give(buf, ev)
-        return dev, ev
+        out = []
+        with torch.inference_mode():
+            for dev, copy in zip(self.devices, self._copies):
+                with torch.cuda.stream(copy):
+                    t = torch.empty(piece.shape, dtype=torch.uint8,
+                                    device=dev)
+                    t.copy_(host, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(copy)
+                out.append((t, ev))
+        self.pinned.give(buf, [ev for _, ev in out])
+        return out
 
-    def _h2d(self, a: np.ndarray, hold: list) -> torch.Tensor:
-        """A host array to the device on the current stream, through a
-        pinned buffer (put in `hold` until the flush's event)."""
+    def _h2d(self, a: np.ndarray, hold: list, d: int = 0) -> torch.Tensor:
+        """A host array to device d on its current stream (the caller is
+        inside _stream(d)), through a pinned buffer (put in `hold` until
+        the flush's event)."""
         if self.device.type != "cuda":
             return torch.from_numpy(np.ascontiguousarray(a))
         buf, host = self.pinned.take(a.shape, torch.from_numpy(a[:0]).dtype)
         np.copyto(host.numpy(), a)
         hold.append(buf)
-        return host.to(self.device, non_blocking=True)
+        return host.to(self.devices[d], non_blocking=True)
+
+    def _to_primary(self, per_dev: list) -> list:
+        """per_dev[d]: device d's result tensors, made on its stream ->
+        the same results on the primary device, ready on the current
+        (primary) stream.  A replica on the primary's own device is waited
+        for by event; another card's results are copied on that card's
+        stream, which PyTorch orders with the primary stream."""
+        if len(per_dev) == 1 or self.device.type != "cuda":
+            return per_dev
+        cur = torch.cuda.current_stream(self.device)
+        out = [per_dev[0]]
+        for d in range(1, len(per_dev)):
+            if self.devices[d] == self.device:
+                ev = torch.cuda.Event()
+                ev.record(self._computes[d])
+                cur.wait_event(ev)
+                for t in per_dev[d]:
+                    t.record_stream(cur)
+                out.append(per_dev[d])
+            else:
+                with self._stream(d):
+                    out.append([t.to(self.device, non_blocking=True)
+                                for t in per_dev[d]])
+        return out
 
     def _to_host(self, probs: torch.Tensor):
         """Queue a device result's copy into a pinned buffer (done at the
@@ -728,20 +824,29 @@ class CallEngine:
         kind, payload, sites = work
         cap = self.cfg.buffer_bases
         hold: list = []
-        if kind == "segments":
-            segs = []
-            for t, ev in payload:
-                if ev is not None:
-                    stream = torch.cuda.current_stream(self.device)
-                    stream.wait_event(ev)
-                    t.record_stream(stream)
-                segs.append(t)
-            table = featurize_planes_t_seg(segs, cap)
-        else:
-            table = featurize_planes_seg(self._h2d(payload, hold), cap)
-            if self.cfg.gather_impl == "folded":
-                table = fold_table(table)
-        per_ctx = {ctx: self._call_context(ctx, table, sites[ctx], hold)
+        tables = []
+        for d in range(len(self.devices)):
+            with self._stream(d):
+                if kind == "segments":
+                    segs = []
+                    for t, ev in (seg[d] for seg in payload):
+                        if ev is not None:
+                            stream = torch.cuda.current_stream(
+                                self.devices[d])
+                            stream.wait_event(ev)
+                            t.record_stream(stream)
+                        segs.append(t)
+                    table = featurize_planes_t_seg(segs, cap)
+                else:
+                    table = featurize_planes_seg(
+                        self._h2d(payload, hold, d), cap)
+                    # data-parallel folded runs the slice gather over the
+                    # unfolded table, as the JAX engine's call_sites_grid
+                    if (self.cfg.gather_impl == "folded"
+                            and len(self.devices) == 1):
+                        table = fold_table(table)
+            tables.append(table)
+        per_ctx = {ctx: self._call_context(ctx, tables, sites[ctx], hold)
                    for ctx in self.cfg.contexts}
         done = None
         if self.device.type == "cuda":
@@ -752,21 +857,26 @@ class CallEngine:
         self.timers["dispatch"] += time.perf_counter() - t0
         return per_ctx, done
 
-    def _call_context(self, ctx: str, table: torch.Tensor, s: dict,
-                      hold: list):
+    def _call_context(self, ctx: str, tables: list, s: dict, hold: list):
         """Plan groups of GROUP position-sorted sites whose windows fit one
-        block and call them; returns (n_sites, streams, order).
+        block and call them; returns (n_sites, streams, order).  tables[d]
+        is device d's feature table.
 
         Reverse-strand sites run as a separate stream through the kernels'
         reverse mode, so no per-site strand vector reaches the device.  The
-        gather and fused paths share this plan."""
+        gather and fused paths share this plan.  Data-parallel, each batch
+        holds site_batch // GROUP groups per device, split over the devices
+        in group order: every device calls batches of the single-device
+        shape, with its own models and table on its own stream (the JAX
+        engine's call_sites_pallas_dp), and the results come back to the
+        primary device in group order."""
         centers = (np.concatenate(s["centers"]) if s["centers"]
                    else np.empty(0, np.int32))
         n = len(centers)
         if n == 0:
             return n, None, None
         if self.cfg.gather_impl not in _PLANNED_GATHERS:
-            return self._call_context_batched(ctx, table, s, centers, hold)
+            return self._call_context_batched(ctx, tables, s, centers, hold)
         strands = np.concatenate(s["strands"])
         if n > 1 and not np.all(centers[:-1] <= centers[1:]):
             order = np.argsort(centers, kind="stable")
@@ -781,17 +891,16 @@ class CallEngine:
             streams = [(None, False)]
 
         n_rows = self.cfg.buffer_bases
+        ndev = len(self.devices)
         ngrp = self.cfg.site_batch // GROUP
         if self.cfg.gather_impl == "fused":
-            weights = self.models.fused[ctx]
-
-            def call(b, r, rev):
-                return call_sites_fused(weights, table, b, r, rev)
+            def call(d, b, r, rev):
+                return call_sites_fused(self.replicas[d].fused[ctx],
+                                        tables[d], b, r, rev)
         else:
-            model = self.models.models[ctx]
-
-            def call(b, r, rev):
-                return call_sites_group(model, table, b, r, rev, self.kmer)
+            def call(d, b, r, rev):
+                return call_sites_group(self.replicas[d].models[ctx],
+                                        tables[d], b, r, rev, self.kmer)
         results = []
         for sel, rev in streams:
             cs = c_s if sel is None else c_s[sel]
@@ -810,46 +919,87 @@ class CallEngine:
                 rels = rels + (bases - b128)[:, None]
             check_plan(b128, rels, n_rows, self.kmer)
             ng = len(b128)
-            nb = sum(self._decompose_batches((ng + ngrp - 1) // ngrp))
-            pad_g = nb * ngrp - ng
+            step = ngrp * ndev
+            nb = sum(self._decompose_batches((ng + step - 1) // step))
+            pad_g = nb * step - ng
             if pad_g:
                 # padded groups read the buffer-start margin (base 0): zero
                 # windows whose prob slots are dropped at resolve
                 b128 = np.concatenate([b128, np.zeros(pad_g, np.int32)])
                 rels = np.concatenate([rels, np.zeros((pad_g, GROUP), np.int32)])
-            bases_d = self._h2d(b128.astype(np.int32), hold)
-            rels_d = self._h2d(rels.astype(np.int32), hold)
-            parts = [call(bases_d[b * ngrp:(b + 1) * ngrp],
-                          rels_d[b * ngrp:(b + 1) * ngrp], rev)
-                     for b in range(nb)]
+            # batch b's groups [b*step, (b+1)*step) go to the devices in
+            # blocks of ngrp
+            b128 = b128.astype(np.int32).reshape(nb, ndev, ngrp)
+            rels = rels.astype(np.int32).reshape(nb, ndev, ngrp, GROUP)
+            per_dev = []
+            for d in range(ndev):
+                with self._stream(d):
+                    bases_d = self._h2d(b128[:, d].reshape(-1), hold, d)
+                    rels_d = self._h2d(rels[:, d].reshape(-1, GROUP), hold, d)
+                    per_dev.append([
+                        call(d, bases_d[b * ngrp:(b + 1) * ngrp],
+                             rels_d[b * ngrp:(b + 1) * ngrp], rev)
+                        for b in range(nb)])
+            per_dev = self._to_primary(per_dev)
+            parts = [per_dev[d][b] for b in range(nb) for d in range(ndev)]
             results.append((self._to_host(torch.cat(parts)), idx, sel,
                             ng))
         return n, results, order
 
-    def _call_context_batched(self, ctx: str, table: torch.Tensor, s: dict,
+    def _call_context_batched(self, ctx: str, tables: list, s: dict,
                               centers: np.ndarray, hold: list):
         """The slice/folded paths: every site in input order, padded with
         center-0 sites (empty read bounds, so zero windows whose probs are
         dropped at resolve) to the batch decomposition, called one bucket
         chunk at a time; returns (n, streams, order) in _resolve's form,
-        one stream in site order."""
+        one stream in site order.  Data-parallel, the sites pad to one
+        bucket of (nb, site_batch) and each device calls its contiguous
+        share of every batch (call_sites_grid)."""
         n = len(centers)
         bs = self.cfg.site_batch
-        chunks = self._decompose_batches((n + bs - 1) // bs)
+        ndev = len(self.devices)
+        chunks = ([self._bucket_batches((n + bs - 1) // bs)] if ndev > 1
+                  else self._decompose_batches((n + bs - 1) // bs))
         pad = sum(chunks) * bs - n
         arrays = [np.concatenate([a, np.zeros(pad, a.dtype)]) for a in (
             centers, np.concatenate(s["strands"]),
             np.concatenate(s["rstart"]), np.concatenate(s["rend"]))]
+        if ndev > 1:
+            return n, [(self._to_host(self._call_grid(ctx, tables, arrays,
+                                                      hold)),
+                        None, None, n)], None
         dev = [self._h2d(a, hold) for a in arrays]
         model = self.models.models[ctx]
         parts, o = [], 0
         for k in chunks:
             sl = slice(o * bs, (o + k) * bs)
             parts.append(call_sites_batched(
-                model, table, *(a[sl] for a in dev), site_batch=bs,
+                model, tables[0], *(a[sl] for a in dev), site_batch=bs,
                 kmer=self.kmer, gather_impl=self.cfg.gather_impl))
             o += k
         return n, [(self._to_host(torch.cat(parts)), None, None, n)], None
+
+    def _call_grid(self, ctx: str, tables: list, arrays: list,
+                   hold: list) -> torch.Tensor:
+        """Data-parallel slice gather: the padded site arrays as (nb,
+        site_batch) grids split on the second axis into one contiguous
+        share per device; each device calls its (nb, share) grid; the
+        shares come back to the primary device as (nb * site_batch,) u8
+        probabilities in site order."""
+        bs = self.cfg.site_batch
+        grids = [a.reshape(-1, bs) for a in arrays]
+        bounds = np.linspace(0, bs, len(self.devices) + 1).astype(int)
+        per_dev = []
+        for d in range(len(self.devices)):
+            lo, hi = bounds[d], bounds[d + 1]
+            with self._stream(d):
+                dev = [self._h2d(np.ascontiguousarray(g[:, lo:hi]), hold, d)
+                       for g in grids]
+                per_dev.append([call_sites_grid(
+                    self.replicas[d].models[ctx], tables[d], *dev,
+                    kmer=self.kmer)])
+        per_dev = self._to_primary(per_dev)
+        return torch.cat([p[0] for p in per_dev], dim=1).reshape(-1)
 
     # -- resolve and emit --------------------------------------------------
     def _emit(self, inflight, out: list):
@@ -1039,25 +1189,33 @@ def _print_stats(title: str, contexts, s: dict) -> None:
 
 
 def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
-             cmdline: str = f"{PROG} call") -> dict:
-    """End-to-end `call`: returns the stats dict."""
+             cmdline: str = f"{PROG} call", shard: ShardSpec | None = None,
+             devices=None) -> dict:
+    """End-to-end `call`: returns the stats dict.
+
+    With a multi-process ShardSpec this process calls only its round-robin
+    read blocks and writes them, in order, to `out_bam.shard%04d` (merge
+    the shards with `merge-shards`).  `devices`: see CallEngine."""
     from .. import __version__
 
-    engine = CallEngine(cfg)
+    shard = shard or ShardSpec()
+    engine = CallEngine(cfg, devices=devices)
     reader = BamReader(in_bam, threads=cfg.io_threads)
     header = reader.header.with_pg_line(PROG, __version__, cmdline)
-    writer = BamWriter(out_bam, header, threads=cfg.io_threads)
+    writer = BamWriter(shard_path(out_bam, shard), header,
+                       threads=cfg.io_threads)
     # async mode: the emit worker writes the records
     engine.sink = writer.write
     n_workers = resolve_decode_workers(cfg.decode_workers)
     prefetch = None
     try:
+        records = (rec for _, rec in sharded_read_stream(reader, shard))
         if n_workers > 0:
-            prefetch = _DecodePrefetcher(reader, cfg.min_read_size,
+            prefetch = _DecodePrefetcher(records, cfg.min_read_size,
                                          workers=n_workers)
             pairs = iter(prefetch)
         else:
-            pairs = ((rec, _UNSET) for rec in reader)
+            pairs = ((rec, _UNSET) for rec in records)
         done: list[BamRecord] = []
         next_log = cfg.read_batch_size
         batch_snap = dict(engine.stats)
@@ -1107,5 +1265,9 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
                                   "gather_impl": engine.cfg.gather_impl,
                                   "async_emit": engine.cfg.async_emit,
                                   "decode_workers": n_workers,
-                                  "device": str(engine.device)}}, f, indent=1)
+                                  "device": str(engine.device),
+                                  "devices": [str(d) for d in engine.devices],
+                                  "shard": [shard.process_id,
+                                            shard.num_processes]}},
+                      f, indent=1)
     return s

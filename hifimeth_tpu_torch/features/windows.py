@@ -208,6 +208,22 @@ def call_sites_batched(model: DNAModNet, feats: torch.Tensor,
     return torch.cat(parts)
 
 
+def call_sites_grid(model: DNAModNet, feats: torch.Tensor,
+                    centers: torch.Tensor, strands: torch.Tensor,
+                    rstart: torch.Tensor, rend: torch.Tensor,
+                    kmer: int = KMER_SIZE) -> torch.Tensor:
+    """One device's share of a data-parallel flush: (nb, share) site grids
+    -> (nb, share) u8 scaled probs, each row one step of the slice gather
+    over the (N, C) table and the CNN (the JAX package's call_sites_grid,
+    whose (nb, site_batch) grid is split on its second axis over the
+    devices)."""
+    nb, share = centers.shape
+    return call_sites_batched(
+        model, feats, centers.reshape(-1), strands.reshape(-1),
+        rstart.reshape(-1), rend.reshape(-1), site_batch=share,
+        kmer=kmer).reshape(nb, share)
+
+
 def call_sites_group(model: DNAModNet, table: torch.Tensor,
                      bases: torch.Tensor, rels: torch.Tensor, rev: bool,
                      kmer: int = KMER_SIZE) -> torch.Tensor:

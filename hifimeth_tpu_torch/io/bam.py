@@ -61,6 +61,22 @@ class BamHeader:
             self._name2tid = {n: i for i, (n, _) in enumerate(self.refs)}
         return self._name2tid.get(name, -1)
 
+    def tid2name(self, tid: int) -> str:
+        return self.refs[tid][0]
+
+    @property
+    def n_refs(self) -> int:
+        return len(self.refs)
+
+    def sort_order(self) -> str | None:
+        """SO tag of the @HD line, if present (pileup.cpp:438-459)."""
+        for line in self.text.splitlines():
+            if line.startswith("@HD"):
+                for col in line.split("\t")[1:]:
+                    if col.startswith("SO:"):
+                        return col[3:]
+        return None
+
     def with_pg_line(self, name: str, version: str, cmdline: str) -> "BamHeader":
         pg = f"@PG\tID:{name}\tPN:{name}\tVN:{version}\tCL:{cmdline}\n"
         text = self.text
@@ -146,6 +162,11 @@ class BamRecord:
                 num = 0
         self.cigar = np.asarray(ops, np.uint32)
 
+    def cigar_ops(self) -> tuple[np.ndarray, np.ndarray]:
+        """(op_codes, op_lengths) arrays."""
+        return ((self.cigar & 0xF).astype(np.int64),
+                (self.cigar >> 4).astype(np.int64))
+
     # -- aux tags --------------------------------------------------------
     def get_tag(self, tag: str):
         for t, ty, v in self.tags:
@@ -170,6 +191,14 @@ class BamRecord:
     @property
     def is_reverse(self) -> bool:
         return bool(self.flag & 0x10)
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & 0x4)
+
+    @property
+    def is_secondary_or_supplementary(self) -> bool:
+        return bool(self.flag & 0x900)
 
     # -- (de)serialization ----------------------------------------------
     @classmethod
@@ -478,6 +507,12 @@ class BamReader:
             raise StopIteration
         return BamRecord.from_bytes(raw)
 
+    @property
+    def is_sam_text(self) -> bool:
+        """True when the input is SAM text: its records are born parsed, so
+        callers that would parse raw views take records with next()."""
+        return self._sam is not None
+
     def next_raw(self) -> memoryview | None:
         """Next record body (without the leading block_size) or None at EOF.
 
@@ -513,6 +548,11 @@ class BamWriter:
 
     def write(self, rec: BamRecord) -> None:
         self._bgzf.write(rec.to_bytes())
+
+    def write_raw(self, body: bytes | memoryview) -> None:
+        """Write one record body as BamReader.next_raw returns it."""
+        self._bgzf.write(struct.pack("<I", len(body)))
+        self._bgzf.write(body)
 
     def close(self) -> None:
         self._bgzf.close()

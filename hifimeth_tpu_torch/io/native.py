@@ -44,6 +44,33 @@ def _load():
     lib.hm_plan_groups.restype = c_i64
     lib.hm_plan_groups.argtypes = [i32p, c_i64, c_i32, c_i32, c_i32,
                                    c_i64, c_i64, i32p, i32p, i64p, i32p]
+    # pileup, cov2bed, corr and eval
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.hm_parse_deltas.restype = c_i64
+    lib.hm_parse_deltas.argtypes = [u8p, c_i64, i32p]
+    lib.hm_bed_rows.restype = c_i64
+    lib.hm_bed_rows.argtypes = [ctypes.c_char_p, i32p, i32p, i32p, c_i64,
+                                ctypes.c_char_p, c_i64]
+    lib.hm_bed_rows7.restype = c_i64
+    lib.hm_bed_rows7.argtypes = [ctypes.c_char_p, i32p, i32p, i32p, u8p,
+                                 ctypes.c_char_p, c_i32, c_i64,
+                                 ctypes.c_char_p, c_i64]
+    lib.hm_scan_bed6.restype = c_i64
+    lib.hm_scan_bed6.argtypes = [u8p, c_i64, c_i32, i64p, i64p, i64p, i64p,
+                                 i32p, i64p, i32p, c_i64, i64p]
+    lib.hm_map_mod_sites.restype = c_i64
+    lib.hm_map_mod_sites.argtypes = [
+        u8p, c_i64, c_i32,            # query, qsize, qdir
+        u8p, c_i64, c_i64,            # chr_seq, chr_len, pos
+        u8p, i32p, c_i64,             # cigar ops, lens, n_cigar
+        u8p, u8p,                     # has_prob, prob_at
+        dp, dp,                       # pi, epi
+        i32p, u8p, u8p, c_i64]        # soff, prob, motif, cap
+    lib.hm_hist_mods.restype = None
+    lib.hm_hist_mods.argtypes = [u8p, c_i64, i64p, u8p, c_i64, i64p]
+    lib.hm_accum_counts.restype = None
+    lib.hm_accum_counts.argtypes = [i32p, u8p, u8p, c_i64, u8p,
+                                    i32p, i32p, u8p]
     _LIB = lib
     return _LIB
 
@@ -195,3 +222,199 @@ def plan_groups_fast(starts_sorted: np.ndarray, group: int, block_rows: int,
             break
     return (bases[:ng].copy(), rels[:ng].copy(),
             None if trivial.value else idx[:ng].copy())
+
+
+def _i32p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _i64p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def parse_deltas(body: bytes):
+    """An MM delta body b"d0,d1,..." -> int32 array; None if the native
+    library is unavailable; ValueError on malformed input (illegal char,
+    empty token, overflow)."""
+    lib = _load()
+    if not lib:
+        return None
+    arr = np.frombuffer(body, np.uint8)
+    out = np.empty(len(body) // 2 + 1, np.int32)
+    n = lib.hm_parse_deltas(_u8p(arr), len(arr), _i32p(out))
+    if n < 0:
+        raise ValueError("illegal MM delta body")
+    return out[:n]
+
+
+def bed_rows(chr_name: str, pos: np.ndarray, pcov: np.ndarray,
+             cov: np.ndarray):
+    """Pileup's 6-column BED rows as bytes (C %g == Python :g); None if
+    the native library is unavailable."""
+    lib = _load()
+    if not lib:
+        return None
+    pos = np.ascontiguousarray(pos, np.int32)
+    pcov = np.ascontiguousarray(pcov, np.int32)
+    cov = np.ascontiguousarray(cov, np.int32)
+    name = chr_name.encode()
+    # the native per-row guard wants chr_len + 128 bytes of headroom
+    cap = (len(name) + 128) * max(len(pos), 1) + 8
+    out = ctypes.create_string_buffer(cap)
+    w = lib.hm_bed_rows(name, _i32p(pos), _i32p(pcov), _i32p(cov), len(pos),
+                        out, cap)
+    if w < 0:
+        raise ValueError("bed_rows: buffer overflow")
+    return out.raw[:w]
+
+
+def bed_rows7(chr_name: str, pos: np.ndarray, pcov: np.ndarray,
+              cov: np.ndarray, motif_id: np.ndarray,
+              motif_names: list[str]):
+    """cov2bed's 7-column BED rows (... motif) as bytes; None if the
+    native library is unavailable."""
+    lib = _load()
+    if not lib:
+        return None
+    pos = np.ascontiguousarray(pos, np.int32)
+    pcov = np.ascontiguousarray(pcov, np.int32)
+    cov = np.ascontiguousarray(cov, np.int32)
+    motif_id = np.ascontiguousarray(motif_id, np.uint8)
+    stride = max(len(m) for m in motif_names) + 1
+    table = b"".join(m.encode().ljust(stride, b"\0") for m in motif_names)
+    name = chr_name.encode()
+    cap = (len(name) + 128) * max(len(pos), 1)
+    out = ctypes.create_string_buffer(cap)
+    w = lib.hm_bed_rows7(name, _i32p(pos), _i32p(pcov), _i32p(cov),
+                         _u8p(motif_id), table, stride, len(pos), out, cap)
+    if w < 0:
+        raise ValueError("bed_rows7: buffer overflow")
+    return out.raw[:w]
+
+
+def scan_bed6(data: bytes, skip_short: bool):
+    """Parse 6+-column methylation-BED / Bismark-cov text ->
+    (names, chrid, start, end, pcov, ncov): `names` lists the chromosome
+    names in run order and chrid indexes it.  None if the native library is
+    unavailable; ValueError (with the offending line) on a malformed row."""
+    lib = _load()
+    if not lib:
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    max_rows = data.count(b"\n") + 2
+    start = np.empty(max_rows, np.int64)
+    end = np.empty(max_rows, np.int64)
+    pcov = np.empty(max_rows, np.int64)
+    ncov = np.empty(max_rows, np.int64)
+    chrid = np.empty(max_rows, np.int32)
+    # a 64 Ki name table first; a failure is a parse error OR the table
+    # overflowing (> 64 Ki chromosome runs), so retry once with the true
+    # upper bound (one run per row) to tell them apart
+    for max_names in ((1 << 16), max_rows):
+        name_off = np.empty(max_names, np.int64)
+        name_len = np.empty(max_names, np.int32)
+        n_names = ctypes.c_int64(0)
+        n = lib.hm_scan_bed6(
+            _u8p(buf), len(buf), int(skip_short), _i64p(start), _i64p(end),
+            _i64p(pcov), _i64p(ncov), _i32p(chrid), _i64p(name_off),
+            _i32p(name_len), max_names, ctypes.byref(n_names))
+        if n >= 0 or max_rows <= max_names:
+            break
+    if n < 0:
+        off = -(n + 1)
+        stop = data.find(b"\n", off)
+        line = data[off:stop if stop >= 0 else len(data)]
+        raise ValueError(f"corrupted BED record {line!r}")
+    names = [data[name_off[i]:name_off[i] + name_len[i]].decode()
+             for i in range(n_names.value)]
+    return names, chrid[:n], start[:n], end[:n], pcov[:n], ncov[:n]
+
+
+_MAP_SCRATCH = None
+
+
+def map_mod_sites(query: np.ndarray, qdir: int, chr_seq: np.ndarray,
+                  pos: int, ops: np.ndarray, lens: np.ndarray,
+                  has_prob: np.ndarray, prob_at: np.ndarray):
+    """Pileup pass 1 for one read in one native call: CIGAR expansion,
+    identities, alignment-exact motif mapping and spill assembly (as
+    quant/alignment.expand_alignment + quant/mapping.map_*).
+
+    Returns (pi, epi, soffs i32, probs u8, motifs u8) in spill order, or
+    None if the native library is unavailable or the alignment walks out of
+    bounds (the caller takes the numpy path)."""
+    global _MAP_SCRATCH
+    lib = _load()
+    if not lib:
+        return None
+    query = np.ascontiguousarray(query, np.uint8)
+    chr_seq = np.ascontiguousarray(chr_seq, np.uint8)
+    ops = np.ascontiguousarray(ops, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    has_prob = np.ascontiguousarray(has_prob, np.uint8)
+    prob_at = np.ascontiguousarray(prob_at, np.uint8)
+    cap = 4 * int(lens.sum()) + 8
+    # per-process scratch, grown on demand (results are copied out); not
+    # thread-safe: pass 1 runs on one thread per process
+    if _MAP_SCRATCH is None or len(_MAP_SCRATCH[0]) < cap:
+        _MAP_SCRATCH = (np.empty(cap, np.int32), np.empty(cap, np.uint8),
+                        np.empty(cap, np.uint8))
+    soffs, probs, motifs = _MAP_SCRATCH
+    pi = ctypes.c_double(0.0)
+    epi = ctypes.c_double(0.0)
+    n = lib.hm_map_mod_sites(
+        _u8p(query), len(query), int(qdir), _u8p(chr_seq), len(chr_seq),
+        int(pos), _u8p(ops), _i32p(lens), len(ops), _u8p(has_prob),
+        _u8p(prob_at), ctypes.byref(pi), ctypes.byref(epi), _i32p(soffs),
+        _u8p(probs), _u8p(motifs), cap)
+    if n == -1:
+        raise ValueError("map_mod_sites: record buffer overflow")
+    if n == -3:
+        # HIFIMETH_DEBUG_ALIGN's column self-check (the reference aborts,
+        # bam_info.cpp:399-416): fail loudly, never spill corrupt sites
+        raise ValueError(
+            "map_mod_sites: alignment column self-check failed "
+            "(HIFIMETH_DEBUG_ALIGN); CIGAR/sequence mismatch in input?")
+    if n < 0:
+        return None
+    return (pi.value, epi.value, soffs[:n].copy(), probs[:n].copy(),
+            motifs[:n].copy())
+
+
+def hist_mods(fwd_seq: np.ndarray, qoffs: np.ndarray, probs: np.ndarray,
+              bins: np.ndarray) -> bool:
+    """Pass-1 histogram update for one read (classify by read-local context
+    and count, pileup.cpp:237-271) into the (3, 256) int64 `bins` in
+    place.  False if the native library is unavailable."""
+    lib = _load()
+    if not lib:
+        return False
+    fwd_seq = np.ascontiguousarray(fwd_seq, np.uint8)
+    qoffs = np.ascontiguousarray(qoffs, np.int64)
+    probs = np.ascontiguousarray(probs, np.uint8)
+    assert bins.dtype == np.int64 and bins.flags.c_contiguous
+    lib.hm_hist_mods(_u8p(fwd_seq), len(fwd_seq), _i64p(qoffs), _u8p(probs),
+                     len(qoffs), _i64p(bins))
+    return True
+
+
+def accum_counts(soff: np.ndarray, prob: np.ndarray, motif: np.ndarray,
+                 thresholds: np.ndarray, pcov: np.ndarray, ncov: np.ndarray,
+                 motif_map: np.ndarray) -> bool:
+    """Pass-2 accumulation of one spill chunk into a chromosome's (pcov,
+    ncov, motif_map) arrays in place (pileup.cpp:513-560).  False if the
+    native library is unavailable."""
+    lib = _load()
+    if not lib:
+        return False
+    soff = np.ascontiguousarray(soff, np.int32)
+    prob = np.ascontiguousarray(prob, np.uint8)
+    motif = np.ascontiguousarray(motif, np.uint8)
+    thresholds = np.ascontiguousarray(thresholds, np.uint8)
+    assert pcov.dtype == np.int32 and pcov.flags.c_contiguous
+    assert ncov.dtype == np.int32 and ncov.flags.c_contiguous
+    assert motif_map.dtype == np.uint8 and motif_map.flags.c_contiguous
+    lib.hm_accum_counts(_i32p(soff), _u8p(prob), _u8p(motif), len(soff),
+                        _u8p(thresholds), _i32p(pcov), _i32p(ncov),
+                        _u8p(motif_map))
+    return True

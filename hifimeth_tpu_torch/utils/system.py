@@ -1,4 +1,5 @@
-"""System introspection: physical core count, parameter dump.
+"""System introspection: physical core count, parameter dump, the
+environment of spawned worker processes.
 
 Replicates the reference's thread-count default semantics
 (get_core_count.cpp:21-121: count distinct (physical id, core id) pairs in
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import os
 import sys
+from contextlib import contextmanager
 
 
 def physical_core_count() -> int:
@@ -46,3 +48,21 @@ def dump_parameters(title: str, params: dict) -> None:
     for k, v in params.items():
         print(f"  {k}: {v}", file=sys.stderr)
     print("", file=sys.stderr, flush=True)
+
+
+@contextmanager
+def worker_spawn_env():
+    """The environment for spawning numpy-only worker processes (pileup's
+    pool): the cards are hidden from them (CUDA_VISIBLE_DEVICES empty), so
+    a worker never creates a CUDA context, whatever the parent holds.
+    Spawned children snapshot os.environ at exec, so the variable is set
+    around the pool's construction and the parent's value restored after."""
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
