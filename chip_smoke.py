@@ -64,7 +64,26 @@ Phases (any failure exits non-zero before the final line is printed):
     three collectives run on cuda tensors (the identity) and whose
     `run_pileup_multihost` on the golden corpus merges to the golden BEDs;
     and `pileup`, `cov2bed` and `corr` against the golden corpus.  The
-    phase prints its wall seconds.
+    phase prints its wall seconds;
+ 6. the model lifecycle at full width: the three shipped models exported to
+    ONNX and imported back (load_reference_onnx and import_models), every
+    array bit-equal to its npz; a seeded world (tests/test_train_e2e.py's,
+    scaled: a 200 kb genome with half of its CpGs methylated, a Bismark BED
+    of labels, 400 mapped kinetics reads for training and 20 unmapped
+    held-out reads of 1.5 kb); `extract-features` (CpG, at least 32,768
+    samples); the first 3 training steps on the card against the same 3
+    on the CPU, and in a one-rank NCCL group (every collective of the
+    trainer) against no group, from the same carried weights, within the
+    STEP_* tolerances (steps_close); the recipe on the card (kmer 401,
+    batch 512, recipe widths, 3 epochs, float32 without TF32) to a final
+    accuracy above 0.9, with its ms a step on the card's stream split
+    into gather, forward+backward and optimizer, its samples/s and peak
+    memory, and 10 steady steps under torch.profiler (device busy ms a
+    step, idle share, top kernels); and the folded model serving
+    the held-out reads through `call` on the card with pallas and with
+    fused (each must launch its kernel), each with a held-out AUC above 0.9
+    and fused within the parity contract of pallas.  The phase prints its
+    wall seconds.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  window_rows lies on no path of the
 repository: its `launches` are its phase-2 launches.
@@ -132,6 +151,31 @@ BF16_FLOOR_MEAN = 0.3
 #: the card's bf16 against the CPU's bf16, max and mean |diff|: the two
 #: differ only in the order of float32 sums (read: max 4, mean 0.05-0.07)
 BF16_DEVICE = (10, 0.2)
+#: phase 6's world: genome length, training and held-out reads, read length
+#: (~94 CpG samples a read: WORLD_TRAIN reads give ~37,500)
+WORLD_GLEN = 200_000
+WORLD_TRAIN = 400
+WORLD_HELD = 20
+WORLD_RLEN = 1500
+#: the recipe trained in phase 6, and the least samples it must train on
+TRAIN_KMER = 401
+TRAIN_BATCH = 512
+TRAIN_EPOCHS = 3
+TRAIN_MIN_SAMPLES = 32768
+#: steps held card vs CPU and one-rank NCCL vs no group (steps_close):
+#: float32 without TF32 on both sides, so they differ only in the order of
+#: sums.  Each step's loss within STEP_LOSS_TOL; each parameter and BN
+#: statistic after the first and the last step within STEP_SHARE of its own
+#: change over the steps (read on the card: 0.069 after step 3 against the
+#: CPU, 0.054 in the NCCL group; the CPU on 1 and 6 threads 0.031)
+PARITY_STEPS = 3
+STEP_LOSS_TOL = 1e-4
+STEP_SHARE = (0.01, 0.25)
+#: steady training steps profiled for the card's busy and idle time
+PROFILE_STEPS = 10
+#: the least final training accuracy and held-out AUC
+MIN_FINAL_ACC = 0.9
+MIN_HELD_AUC = 0.9
 
 
 def fail(msg: str) -> int:
@@ -985,6 +1029,342 @@ def phase_scale_out(big, td, runs):
           f"{time.perf_counter() - t_phase:.3f} s wall")
 
 
+# -- phase 6: the model lifecycle ---------------------------------------------
+
+def phase_onnx(td):
+    """Each shipped model exported to ONNX by the port and imported back
+    (load_reference_onnx, and import_models over the directory): every
+    array bit-equal to the npz's."""
+    import numpy as np
+    from hifimeth_tpu_torch.engine.call import default_model_dir
+    from hifimeth_tpu_torch.model.cnn import (load_params_npz,
+                                              load_reference_onnx,
+                                              params_to_numpy)
+    from hifimeth_tpu_torch.model.onnx_export import export_onnx
+    from hifimeth_tpu_torch.tools.import_model import import_models
+
+    src = os.path.join(td, "onnx")
+    os.makedirs(src)
+    dst = os.path.join(td, "imported")
+    want = {}
+    for ctx in CONTEXTS:
+        with np.load(os.path.join(default_model_dir(), f"{ctx}.npz")) as z:
+            want[ctx] = {k: z[k] for k in z.files}
+        export_onnx(load_params_npz(os.path.join(default_model_dir(),
+                                                 f"{ctx}.npz")),
+                    os.path.join(src, f"{ctx}.onnx"))
+    import_models(src, dst)
+    for ctx in CONTEXTS:
+        with np.load(os.path.join(dst, f"{ctx}.npz")) as z:
+            imported = {k: z[k] for k in z.files}
+        direct = params_to_numpy(load_reference_onnx(
+            os.path.join(src, f"{ctx}.onnx")))
+        for got in (imported, direct):
+            if sorted(got) != sorted(want[ctx]) or any(
+                    got[k].dtype != w.dtype or got[k].tobytes() != w.tobytes()
+                    for k, w in want[ctx].items()):
+                raise AssertionError(f"{ctx}: the ONNX round trip is not "
+                                     f"bit-equal to the npz")
+    print(f"[lifecycle] export-model + import-model of {', '.join(CONTEXTS)}:"
+          f" every array bit-equal to the shipped npz")
+
+
+def read_kinetics(rng, meth, pos, length):
+    """Native-forward codeV1 kinetics (fi, fp, ri, rp) with IPD/PW raised
+    by 120 within 3 bases of each methylated C: the learnable signal of
+    tests/test_train_e2e.py."""
+    import numpy as np
+    ks = [rng.integers(20, 90, length).astype(np.uint8) for _ in range(4)]
+    for q in np.flatnonzero(meth[pos:pos + length]):
+        lo, hi = max(0, q - 3), min(length, q + 4)
+        for a in ks:
+            a[lo:hi] = np.minimum(a[lo:hi].astype(np.int32) + 120, 255)
+    return ks
+
+
+def make_world(td, seed=5):
+    """Phase 6's seeded world (tests/test_train_e2e.py's, scaled up): a
+    uniform random genome with half of its CpGs methylated, a Bismark BED of
+    labels (cov 12 at 0% or 100%), WORLD_TRAIN mapped kinetics reads and
+    WORLD_HELD unmapped held-out reads of WORLD_RLEN bases.  Returns the
+    paths, the methylation map and the held-out reads' positions."""
+    import numpy as np
+    from hifimeth_tpu_torch.io.bam import BamHeader, BamRecord, BamWriter
+
+    rng = np.random.default_rng(seed)
+    genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), WORLD_GLEN)
+    cpg = np.flatnonzero((genome[:-1] == ord("C")) & (genome[1:] == ord("G")))
+    meth = np.zeros(WORLD_GLEN, bool)
+    meth[cpg[rng.random(len(cpg)) < 0.5]] = True
+    fasta = os.path.join(td, "world.fa")
+    with open(fasta, "w") as f:
+        g = genome.tobytes().decode()
+        f.write(">chr1\n" + "".join(g[i:i + 70] + "\n"
+                                    for i in range(0, WORLD_GLEN, 70)))
+    bed = os.path.join(td, "world.labels.bed")
+    with open(bed, "w") as f:
+        for p in cpg:
+            f.write(f"chr1\t{p}\t{p + 1}\t100\t12\t0\tCG\n" if meth[p]
+                    else f"chr1\t{p}\t{p + 1}\t0\t0\t12\tCG\n")
+
+    def write_reads(path, n, mapped, tag):
+        hdr = (BamHeader("@HD\tVN:1.6\tSO:coordinate\n", [("chr1", WORLD_GLEN)])
+               if mapped else BamHeader("@HD\tVN:1.6\tSO:unknown\n", []))
+        poss = np.sort(rng.integers(0, WORLD_GLEN - WORLD_RLEN, n))
+        with BamWriter(path, hdr, threads=4, level=1) as w:
+            for i, pos in enumerate(poss):
+                if mapped:
+                    rec = BamRecord(qname=f"{tag}{i}", flag=0, refid=0,
+                                    pos=int(pos), mapq=60)
+                    rec.set_cigar_str(f"{WORLD_RLEN}M")
+                else:
+                    rec = BamRecord(qname=f"{tag}{i}", flag=4)
+                rec.set_seq(genome[pos:pos + WORLD_RLEN].tobytes())
+                for t, a in zip(("fi", "fp", "ri", "rp"), read_kinetics(
+                        rng, meth, int(pos), WORLD_RLEN)):
+                    rec.set_tag(t, "B", ("C", a))
+                rec.set_tag("fn", "C", 5)
+                rec.set_tag("rn", "C", 5)
+                w.write(rec)
+        return poss
+
+    train_bam = os.path.join(td, "world.train.bam")
+    held_bam = os.path.join(td, "world.held.bam")
+    write_reads(train_bam, WORLD_TRAIN, True, "t")
+    held_pos = write_reads(held_bam, WORLD_HELD, False, "h")
+    return fasta, bed, train_bam, held_bam, meth, held_pos
+
+
+def run_steps(blob, cfg, init, layout=None):
+    """The first PARITY_STEPS steps of train_context's schedule from the
+    weights `init`; returns each step's (loss, acc) and the (params,
+    state) after the first step and after the last."""
+    import numpy as np
+    from hifimeth_tpu_torch.train.trainer import TrainStep, float32_scope
+    with float32_scope():
+        tr = TrainStep(cfg, blob.planes_t, *init, layout=layout)
+        order = np.random.default_rng(cfg.seed).permutation(blob.n_samples)
+        metrics, trees = [], []
+        for i in range(PARITY_STEPS):
+            metrics.append(tr.step(blob, order[i * cfg.batch_size:
+                                               (i + 1) * cfg.batch_size])
+                           .tolist())
+            if i in (0, PARITY_STEPS - 1):
+                trees.append(tr.jax_params())
+        return metrics, trees
+
+
+def tree_leaves(*trees):
+    """The arrays of equal-shaped pytrees (dicts, lists, tuples), zipped."""
+    import numpy as np
+    if isinstance(trees[0], dict):
+        return [x for k in trees[0] for x in tree_leaves(*(t[k] for t in trees))]
+    if isinstance(trees[0], (list, tuple)):
+        return [x for parts in zip(*trees) for x in tree_leaves(*parts)]
+    return [tuple(np.asarray(t, np.float64) for t in trees)]
+
+
+def steps_close(label, got, want, init):
+    """Two runs of the first steps from the weights `init` within the
+    STEP_* tolerances: each step's loss, and each parameter and BN
+    statistic after the first and after the last step, whose max |diff| is
+    held against that array's largest change from `init` (STEP_SHARE).
+    Float32 sums taken in another order move a few ReLUs across zero and
+    each step spreads that, so the arrays are held relative to the
+    training's own movement, which a wrong update term (rate, momentum,
+    batch statistics) changes by a large part."""
+    import numpy as np
+    (gm, gtrees), (wm, wtrees) = got, want
+    loss_d = max(abs(a[0] - b[0]) for a, b in zip(gm, wm))
+    shares, diffs = [], []
+    for g, w in zip(gtrees, wtrees):
+        leaves = tree_leaves(g, w, init)
+        shares.append(max(float(np.abs(a - b).max()
+                                / max(np.abs(b - i).max(), 1e-12))
+                          for a, b, i in leaves))
+        diffs.append(max(float(np.abs(a - b).max()) for a, b, _ in leaves))
+    print(f"[lifecycle] {label}: losses {[m[0] for m in gm]} vs "
+          f"{[m[0] for m in wm]} (max |diff| {loss_d}, limit "
+          f"{STEP_LOSS_TOL}); params and BN state max |diff| after step 1 "
+          f"{diffs[0]}, after step {PARITY_STEPS} {diffs[1]}; at most "
+          f"{shares[0]:.5f} and {shares[1]:.5f} of an array's change "
+          f"(limits {STEP_SHARE[0]} and {STEP_SHARE[1]})")
+    if loss_d > STEP_LOSS_TOL or any(a > b for a, b in zip(shares,
+                                                            STEP_SHARE)):
+        raise AssertionError(f"{label}: the first steps disagree beyond "
+                             f"the tolerance")
+
+
+def profile_steps(blob, cfg, init, card):
+    """PROFILE_STEPS steady training steps on the card (after 3 warm-up
+    steps) under torch.profiler, device activity only: wall and device
+    busy ms per step (the union of the kernels' and copies' intervals),
+    the idle share, and the kernels that take the most device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hifimeth_tpu_torch.parallel.mesh import TrainLayout
+    from hifimeth_tpu_torch.train.trainer import TrainStep, float32_scope
+    with float32_scope():
+        tr = TrainStep(cfg, blob.planes_t, *init, layout=TrainLayout())
+        order = np.random.default_rng(0).permutation(blob.n_samples)
+        batches = [order[i * cfg.batch_size:(i + 1) * cfg.batch_size]
+                   for i in range(PROFILE_STEPS + 3)]
+        for b in batches[:3]:
+            tr.step(blob, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches[3:]:
+                tr.step(blob, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    spans, by_kernel = [], {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+            by_kernel[ev.name] = (by_kernel.get(ev.name, 0.0)
+                                  + ev.time_range.elapsed_us())
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    n = PROFILE_STEPS
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[lifecycle] {n} profiled steps on {card}: wall "
+          f"{wall / n * 1e3:.4f} ms a step, device busy "
+          f"{busy_us / n / 1e3:.4f} ms a step (idle "
+          f"{100 - 100 * busy_us / 1e6 / wall:.1f}%), {len(spans) // n} "
+          f"kernels and copies a step; top device ms a step: "
+          + "; ".join(f"{us / n / 1e3:.4f} {name[:60]}" for name, us in top))
+
+
+def held_out_auc(path, meth, held_pos):
+    """Midrank AUC of the called CpG probabilities against the genome's
+    methylation, and the number of sites."""
+    import numpy as np
+    from hifimeth_tpu_torch.features.read_decode import native_fwd_seq
+    from hifimeth_tpu_torch.io.bam import BamReader
+    from hifimeth_tpu_torch.io.mmtags import parse_mod_tags_flat
+    from hifimeth_tpu_torch.tools.read_level_metrics import roc_auc
+    y, p = [], []
+    for i, rec in enumerate(BamReader(path)):
+        qoffs, _strands, _codes, probs = parse_mod_tags_flat(
+            rec, native_fwd_seq(rec))
+        y += [bool(meth[held_pos[i] + q]) for q in qoffs]
+        p += [pr / 255.0 for pr in probs]
+    return roc_auc(np.asarray(y), np.asarray(p)), len(y)
+
+
+def phase_lifecycle(td, card):
+    """Phase 6 (see the module notes); `card` is nvidia-smi's name and power
+    limit, printed beside the training's numbers."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from hifimeth_tpu_torch.engine.call import CallConfig, run_call
+    from hifimeth_tpu_torch.parallel.mesh import TrainLayout, train_layout
+    from hifimeth_tpu_torch.tools.extract_features import run_extract_features
+    from hifimeth_tpu_torch.train.data import load_feature_blob
+    from hifimeth_tpu_torch.train.model import init_params
+    from hifimeth_tpu_torch.train.trainer import TrainConfig, train_context
+
+    t_phase = time.perf_counter()
+    td = os.path.join(td, "lifecycle")
+    os.makedirs(td)
+    phase_onnx(td)
+    t0 = time.perf_counter()
+    fasta, bed, train_bam, held_bam, meth, held_pos = make_world(td)
+    t_world = time.perf_counter() - t0
+    prefix = os.path.join(td, "blob")
+    t0 = time.perf_counter()
+    res = run_extract_features(fasta, "CpG", bed, train_bam, prefix,
+                               min_read_size=500)
+    blob = load_feature_blob(f"{prefix}.features", f"{prefix}.samples",
+                             f"{prefix}.offsets")
+    print(f"[lifecycle] world {WORLD_GLEN} bp, {WORLD_TRAIN} + {WORLD_HELD} "
+          f"reads of {WORLD_RLEN} in {t_world:.3f} s; extract-features: "
+          f"{res['reads']} reads, {blob.n_samples} CpG samples ("
+          f"{res['positives']} methylated) in {time.perf_counter() - t0:.3f} s")
+    if blob.n_samples < TRAIN_MIN_SAMPLES:
+        raise AssertionError(f"{blob.n_samples} samples, under "
+                             f"{TRAIN_MIN_SAMPLES}")
+
+    # the first steps: the card against the CPU, a one-rank NCCL group
+    # against no group, all from the same carried weights
+    cfg = TrainConfig(kmer=TRAIN_KMER, batch_size=TRAIN_BATCH,
+                      epochs=TRAIN_EPOCHS, log_every=20, device="cuda")
+    init = init_params(cfg.seed, kmer=cfg.kmer)
+    card_run = run_steps(blob, cfg, init, TrainLayout())
+    steps_close(f"card ({card}) vs CPU", card_run, run_steps(
+        blob, dataclasses.replace(cfg, device="cpu"), init, TrainLayout()),
+        init)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        layout = train_layout(cfg.n_model_shards, cfg.batch_size)
+        steps_close(f"one-rank NCCL group vs no group ({card})",
+                    run_steps(blob, cfg, init, layout), card_run, init)
+    finally:
+        dist.destroy_process_group()
+
+    # the recipe on the card
+    model_dir = os.path.join(td, "models")
+    os.makedirs(model_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_context(blob, cfg, os.path.join(model_dir, "CpG.npz"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(model_dir, "kmer.txt"), "w") as f:
+        f.write(f"{cfg.kmer}\n")
+    steps = run["steps"]
+    ms = {k: v / steps * 1e3 for k, v in run["timers"].items()}
+    print(f"[lifecycle] train (kmer {cfg.kmer}, batch {cfg.batch_size}, "
+          f"{cfg.epochs} epochs, recipe widths, float32 without TF32) on "
+          f"{card}: {steps} steps in {run['wall_s']:.3f} s = "
+          f"{steps * cfg.batch_size / run['wall_s']:.1f} samples/s; ms a "
+          f"step on the card's stream between CUDA events (waits for the "
+          f"host included): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f" (sum {sum(ms.values()):.4f}); peak memory {peak} B; final "
+          f"loss {run['final_loss']:.4f}, accuracy {run['final_acc']:.4f}")
+    if not run["final_acc"] > MIN_FINAL_ACC:
+        raise AssertionError(f"final accuracy {run['final_acc']} not above "
+                             f"{MIN_FINAL_ACC}")
+    profile_steps(blob, cfg, init, card)
+
+    # the trained model serves the held-out reads through both kernels
+    outs = {}
+    for impl, kernel in (("pallas", "group_windows_t"),
+                         ("fused", "fused_forward")):
+        outs[impl] = os.path.join(td, f"held.{impl}.bam")
+        reset_launches()
+        t0 = time.perf_counter()
+        run_call(held_bam, outs[impl], CallConfig(
+            model_dir=model_dir, contexts=("CpG",), min_read_size=500,
+            gather_impl=impl, device="cuda"))
+        torch.cuda.synchronize()
+        got = read_launches()
+        check_launches(f"held-out {impl}", got, (kernel,))
+        auc, n = held_out_auc(outs[impl], meth, held_pos)
+        print(f"[lifecycle] call --gather-impl {impl} of the held-out reads "
+              f"with the trained model on {card} in "
+              f"{time.perf_counter() - t0:.3f} s: "
+              f"{n} CpG sites, AUC {auc:.4f}; launches {got}")
+        if not auc > MIN_HELD_AUC:
+            raise AssertionError(f"held-out AUC {auc} through {impl} not "
+                                 f"above {MIN_HELD_AUC}")
+    compare(outs["fused"], outs["pallas"], "held-out fused-vs-pallas")
+    print(f"[phase 6] model lifecycle in {time.perf_counter() - t_phase:.3f} "
+          f"s wall")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1105,6 +1485,9 @@ def main() -> int:
 
         # -- phase 5: scale-out and quantification -----------------------
         phase_scale_out(big, td, runs)
+
+        # -- phase 6: the model lifecycle ------------------------------------
+        phase_lifecycle(td, card)
 
     for row in rows:
         if row["name"] in launches:

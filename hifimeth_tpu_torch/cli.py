@@ -2,10 +2,9 @@
 
 The reference's subcommands (main.cpp:35-46) and the JAX package's shard
 merges, with the reference's short flags (mod_options.cpp, pileup.cpp).
-`call` keeps the JAX package's options and adds `--device {cuda,cpu}`;
-`pileup` takes `--device` for its collectives when it runs as several
-processes.  Model import/export, extract-features and train answer that
-they are not ported yet.
+`call` and `train` keep the JAX package's options and add `--device
+{cuda,cpu}`; `pileup` takes `--device` for its collectives when it runs as
+several processes.
 """
 from __future__ import annotations
 
@@ -21,7 +20,6 @@ GATHER_IMPLS = ("auto", "slice", "folded", "pallas", "fused")
 DTYPES = {"f32": "float32", "float32": "float32", "bf16": "bfloat16",
           "bfloat16": "bfloat16"}
 FEAT_CHANNELS = (8, 32, 128)
-NOT_YET_PORTED = ("import-model", "export-model", "extract-features", "train")
 
 
 def _usage() -> int:
@@ -36,12 +34,13 @@ COMMANDS:
   sample           Randomly subsample an unmapped kinetics BAM to a coverage
   eval             Extract read-level evaluation samples vs BS-seq labels
   read-level-eval  Score eval output files (accuracy/precision/.../AUC/AP)
+  import-model     Convert reference ONNX models to native .npz
+  export-model     Convert a native .npz model back to ONNX
+  extract-features Build training feature blobs from BAM + BS-seq labels
+  train            Train a per-context model on extracted features
   merge-shards     Interleave per-process shard BAMs into global read order
   merge-pileup-shards  Interleave per-process pileup BED shards
   version          Print version
-
-NOT YET PORTED (use hifimeth-tpu):
-  {' '.join(NOT_YET_PORTED)}
 
 VERSION:
   {__version__}""", file=sys.stderr)
@@ -371,6 +370,42 @@ def _host_command(cmd: str, rest) -> int:
             return 1
         run_read_level_eval(rest[0], int(rest[1]))
         return 0
+    return _model_command(cmd, rest)
+
+
+def _model_command(cmd: str, rest) -> int:
+    """The model lifecycle: import-model, export-model, extract-features,
+    train."""
+    if cmd == "import-model":
+        from .tools.import_model import import_models
+        if len(rest) != 2:
+            print(f"USAGE:\n  {PROG} import-model <reference-model-dir> "
+                  "<output-dir>", file=sys.stderr)
+            return 1
+        import_models(rest[0], rest[1])
+        return 0
+    if cmd == "export-model":
+        from .model.cnn import load_params_npz
+        from .model.onnx_export import export_onnx
+        if len(rest) != 2:
+            print(f"USAGE:\n  {PROG} export-model model.npz model.onnx",
+                  file=sys.stderr)
+            return 1
+        export_onnx(load_params_npz(rest[0]), rest[1])
+        log("exported %s -> %s", rest[0], rest[1])
+        return 0
+    if cmd == "extract-features":
+        from .tools.extract_features import run_extract_features
+        if len(rest) != 5:
+            print(f"USAGE:\n  {PROG} extract-features reference context "
+                  "labels-bed kinetics-bam output-prefix", file=sys.stderr)
+            return 1
+        with program_info(PROG):
+            run_extract_features(*rest)
+        return 0
+    if cmd == "train":
+        from .train.train import main as train_main
+        return train_main(rest, f"{PROG} train")
     return _usage()
 
 
@@ -382,10 +417,6 @@ def main(argv=None) -> int:
     if cmd in ("-v", "--version", "version"):
         print(__version__)
         return 0
-    if cmd in NOT_YET_PORTED:
-        print(f"{PROG}: '{cmd}' is not yet ported to the PyTorch package; "
-              f"use hifimeth-tpu {cmd}", file=sys.stderr)
-        return 2
     if cmd == "call":
         return _call(argv, rest)
     if cmd == "pileup":

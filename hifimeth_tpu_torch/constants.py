@@ -75,6 +75,8 @@ CONTEXTS = ("CpG", "CHG", "CHH")
 
 # Model input geometry (reference: models/kmer.txt, sample_dataset.py:14-17).
 KMER_SIZE = 401
+# one-hot base (4) + same-strand IPD/PW + opposite-strand IPD/PW
+FEATURES_PER_BASE = 8
 
 # CHH motifs and their index tables (reference: 5mc_context.cpp:3-54), for
 # cov2bed's motif column.

@@ -19,6 +19,10 @@ per-site windows cut by indexing with each site's read bounds masked
 (`gather_windows_slice`, `gather_windows_folded`), and the CNN per batch
 (`call_sites_batched`).  They have no kernel in either package.
 
+The trainer's batches (`gather_and_featurize`) skip the table: each window
+reads the raw u8 planes of its positions and featurizes them, as in the
+JAX package's training pipeline.
+
 codeV1 decodes through the 256-entry CODEV1_TO_FRAME_NORM table on every
 device, so the table equals the host extractor's values bit for bit.
 """
@@ -238,3 +242,36 @@ def call_sites_group(model: DNAModNet, table: torch.Tensor,
     w = group_windows_t(table, bases, rels, rev=rev, kmer=kmer,
                         out_dtype=model.compute_dtype)
     return logits_to_scaled_probs(model(w))
+
+
+#: reverse-strand kinetics channel order: (fi, fp, ri, rp) -> (ri, rp, fi, fp)
+_REV_KINETICS = [2, 3, 0, 1]
+
+
+def gather_and_featurize(planes_t: torch.Tensor, centers: torch.Tensor,
+                         strands: torch.Tensor, rstart: torch.Tensor,
+                         rend: torch.Tensor,
+                         kmer_size: int = KMER_SIZE) -> torch.Tensor:
+    """(N, 5) u8 read-major planes -> (B, kmer, 8) float32 site windows, the
+    trainer's batch (the JAX package's gather_and_featurize).
+
+    Each window reads the raw u8 bytes of kmer positions, ascending from
+    center - kmer//2 on the forward strand and descending from center +
+    kmer//2 on the reverse one, and featurizes them: on the reverse strand
+    the 2-bit codes are complemented where code < 4 and the kinetics swap
+    to (ri, rp, fi, fp).  Positions outside the site's read [rstart, rend)
+    are zero.  Plain PyTorch indexing on the planes' device; no kernel."""
+    dev = planes_t.device
+    j = torch.arange(kmer_size, dtype=torch.int64, device=dev) - kmer_size // 2
+    is_rev = (strands != 0)[:, None]
+    pos = centers.to(torch.int64)[:, None] + torch.where(is_rev, -j, j)
+    valid = (pos >= rstart[:, None]) & (pos < rend[:, None])
+    w = planes_t[pos.clamp(0, planes_t.shape[0] - 1)]      # (B, kmer, 5) u8
+    codes = w[..., 0]
+    codes = torch.where(is_rev & (codes < 4), 3 - codes, codes)
+    arange = torch.arange(4, dtype=codes.dtype, device=dev)
+    onehot = (codes[..., None] == arange).to(torch.float32)
+    kin = _codev1_lut(dev)[w[..., 1:5].to(torch.int64)]    # (B, kmer, 4)
+    kin = torch.where(is_rev[..., None], kin[..., _REV_KINETICS], kin)
+    out = torch.cat([onehot, kin], dim=-1)
+    return out * valid[..., None].to(out.dtype)

@@ -11,7 +11,8 @@ Parameters arrive as the params pytree of the JAX package's model/cnn.py
 (numpy arrays): `bn0.{scale,shift}`, `convs[i].{w (K, Cin, Cout), b,
 stride, pad (lo, hi)}`, `fc{1,2}.{w (in, out), b}`.  `params_from_jax`
 turns that pytree into this module's state dict; `load_params_npz` reads the
-same pytree from the repository's `models/*.npz` files.
+same pytree from the repository's `models/*.npz` files and `save_params_npz`
+writes it; `load_reference_onnx` reads it from a reference ONNX file.
 
 Numerics: on a GPU the float32 path must not run in TF32, which keeps only
 about three decimal digits and would move the u8 probabilities by more than
@@ -39,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .onnx_import import load_onnx_graph
 
 
 def exact_float32() -> None:
@@ -74,6 +77,87 @@ def params_from_numpy(flat: dict[str, np.ndarray]) -> dict:
 def load_params_npz(path: str) -> dict:
     with np.load(path) as z:
         return params_from_numpy({k: z[k] for k in z.files})
+
+
+def params_to_numpy(params: dict) -> dict[str, np.ndarray]:
+    """Params pytree -> the {path: array} dict an npz file stores."""
+    flat = {"bn0.scale": np.asarray(params["bn0"]["scale"]),
+            "bn0.shift": np.asarray(params["bn0"]["shift"])}
+    for i, c in enumerate(params["convs"]):
+        flat[f"convs.{i}.w"] = np.asarray(c["w"])
+        flat[f"convs.{i}.b"] = np.asarray(c["b"])
+        flat[f"convs.{i}.stride"] = np.asarray(c["stride"])
+        flat[f"convs.{i}.pad"] = np.asarray(c["pad"])
+    for k in ("fc1", "fc2"):
+        flat[f"{k}.w"] = np.asarray(params[k]["w"])
+        flat[f"{k}.b"] = np.asarray(params[k]["b"])
+    return flat
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    np.savez_compressed(path, **params_to_numpy(params))
+
+
+def fold_batchnorm(gamma, beta, mean, var, eps):
+    """Return (scale, shift) such that BN(x) == x * scale + shift."""
+    scale = gamma / np.sqrt(var + eps)
+    return scale.astype(np.float32), (beta - mean * scale).astype(np.float32)
+
+
+def load_reference_onnx(path: str) -> dict:
+    """Import an inference params pytree from a reference ONNX file.
+
+    Handles both exporter layouts of the shipped models: initializer
+    weights with Gemm FCs (CpG, CHG) and Constant-node weights with
+    MatMul/Add FCs (CHH).  Conv weights come out WIO = (K, Cin, Cout), FC
+    weights (in, out), as the JAX package's importer stores them."""
+    inits, nodes = load_onnx_graph(path)
+    # tensor names -> arrays: the initializers and the Constant nodes
+    env = dict(inits)
+    for n in nodes:
+        if n["op"] == "Constant" and isinstance(n["attrs"].get("value"),
+                                                np.ndarray):
+            env[n["outputs"][0]] = n["attrs"]["value"]
+
+    params: dict = {"convs": []}
+    pending_matmul: np.ndarray | None = None
+    for n in nodes:
+        op = n["op"]
+        if op == "BatchNormalization":
+            gamma, beta, mean, var = (env[i] for i in n["inputs"][1:5])
+            eps = float(n["attrs"].get("epsilon", 1e-5))
+            scale, shift = fold_batchnorm(gamma, beta, mean, var, eps)
+            params["bn0"] = {"scale": scale, "shift": shift}
+        elif op == "Conv":
+            w = env[n["inputs"][1]]                      # (Cout, Cin, K)
+            b = (env[n["inputs"][2]] if len(n["inputs"]) > 2
+                 else np.zeros(w.shape[0], np.float32))
+            strides = n["attrs"].get("strides", [1])
+            pads = n["attrs"].get("pads", [0, 0])
+            params["convs"].append({
+                "w": np.ascontiguousarray(w.transpose(2, 1, 0)),  # WIO
+                "b": b.astype(np.float32),
+                "stride": int(strides[0]),
+                "pad": (int(pads[0]), int(pads[1])),
+            })
+        elif op == "Gemm":
+            w = env[n["inputs"][1]]                      # (out, in), transB=1
+            if not n["attrs"].get("transB", 0):
+                w = w.T
+            b = env[n["inputs"][2]]
+            key = "fc1" if "fc1" not in params else "fc2"
+            params[key] = {"w": np.ascontiguousarray(w.T), "b": b}
+        elif op == "MatMul":
+            pending_matmul = env[n["inputs"][1]]          # (in, out) already
+        elif op == "Add" and pending_matmul is not None:
+            b = env[n["inputs"][1]]
+            key = "fc1" if "fc1" not in params else "fc2"
+            params[key] = {"w": np.ascontiguousarray(pending_matmul), "b": b}
+            pending_matmul = None
+
+    if "fc1" not in params or "fc2" not in params or not params["convs"]:
+        raise ValueError(f"could not reconstruct DNAModNet layers from {path}")
+    return params
 
 
 def conv_spec(params: dict) -> tuple[tuple[int, int, int], ...]:

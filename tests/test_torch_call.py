@@ -118,7 +118,13 @@ def test_cli_call_on_cpu_and_unported_commands(tmp_path, capsys):
     recs = list(BamReader(out))
     assert len(recs) == 12
     assert any(r.get_tag("MM") is not None for r in recs)
-    assert main(["train", "features", "out"]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    # every command of the JAX CLI is ported: train answers with its usage
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as err:
+        main(["train", "features", "out"])
+    assert err.value.code == 2
+    text = capsys.readouterr().err
+    assert "usage: hifimeth-tpu-torch train" in text
+    assert "--feature" in text and "not yet ported" not in text
     with pytest.raises(SystemExit):
         main(["call", "--device", "tpu", "a.bam", "b.bam"])
