@@ -56,8 +56,9 @@ Phases (any failure exits non-zero before the final line is printed):
     runs must launch group_windows_t, slice runs no hand kernel):
     `call --data-parallel` on the one card (the single-device path),
     byte-equal to the pallas run, its sites/s beside it; the split over the
-    device list ["cuda:0", "cuda:0"] (two replicas with their own models,
-    segments, tables and streams) for pallas (byte-equal to one device)
+    device list ["cuda:0", "cuda:0"] (two replicas with their own segments,
+    tables and streams, sharing the card's one read-only model set,
+    ModelSet.cached) for pallas (byte-equal to one device)
     and slice (parity contract); `run_call` on shards 0/2 and 1/2 of
     50-read blocks then `merge_shard_bams` over the same blocks, byte-equal
     to the unsharded run; a one-rank NCCL group whose
@@ -83,6 +84,22 @@ Phases (any failure exits non-zero before the final line is printed):
     the held-out reads through `call` on the card with pallas and with
     fused (each must launch its kernel), each with a held-out AUC above 0.9
     and fused within the parity contract of pallas.  The phase prints its
+    wall seconds;
+ 7. the rest of the JAX package's surface on the card: the main path with
+    the per-flush trace on (CallConfig.trace, the CLI's HIFIMETH_TRACE),
+    pallas and fused, through the default async pipeline and then with
+    --decode-workers 0 (whose untraced runs come first), each run with
+    the counts set to 0 just before it and read just after (it must launch
+    its kernel), its records byte-equal to phase 3's untraced run, one
+    trace line per flush of its schedule with the seven stages in order,
+    and per run the median and total over flushes of the queue wait
+    (dispatch0 - flush), dispatch, the hand-over to resolve (resolve0 -
+    dispatch1), resolve and emit, with its sites/s beside the untraced
+    run's; the weight cache (two engines of one config share weight
+    storage, ["cuda:0", "cuda:0"] shares one set, kmer.txt and an npz
+    rewritten to another size with the mtime put back reload); and
+    call_sites, the reference per-site call, against call_sites_group on
+    the same 16 Ki sites within the parity contract.  The phase prints its
     wall seconds.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  window_rows lies on no path of the
@@ -1365,6 +1382,243 @@ def phase_lifecycle(td, card):
           f"s wall")
 
 
+# -- phase 7: the pipeline trace, the weight cache, the per-site call ---------
+
+#: the trace's stages of one flush, in pipeline order
+TRACE_STAGES = ("flush", "dispatch0", "dispatch1", "resolve0", "resolve1",
+                "emit0", "emit1")
+#: the per-flush intervals phase 7 prints: name -> (from, to) stages
+TRACE_SPANS = {"queue wait": ("flush", "dispatch0"),
+               "dispatch": ("dispatch0", "dispatch1"),
+               "to resolve": ("dispatch1", "resolve0"),
+               "resolve": ("resolve0", "resolve1"),
+               "emit": ("emit0", "emit1")}
+#: reference per-site call on the card: sites, table lanes, read lengths
+REF_SITES = 16384
+REF_LANES = 1 << 21
+
+
+def trace_rows(err, flushes, label):
+    """The `[trace flush N]` lines of a run's stderr -> one {stage: s} per
+    flush; fails unless there is one line per flush of the run's schedule,
+    numbered in order, each with the seven stages in order at
+    non-decreasing times."""
+    import re
+    rows = []
+    for line in err.splitlines():
+        m = re.match(r"^\[trace flush (\d+)\] (.*)$", line)
+        if m:
+            ev = [e.split("@") for e in m.group(2).split()]
+            times = [float(t) for _, t in ev]
+            if (int(m.group(1)) != len(rows)
+                    or tuple(s for s, _ in ev) != TRACE_STAGES
+                    or times != sorted(times)):
+                raise AssertionError(f"{label}: bad trace line {line!r}")
+            rows.append(dict(zip(TRACE_STAGES, times)))
+    if len(rows) != flushes:
+        raise AssertionError(f"{label}: {len(rows)} trace lines for "
+                             f"{flushes} flushes")
+    return rows
+
+
+def phase_trace(big, td, runs):
+    """The traced runs of phase 7; `runs` holds phase 3's stats."""
+    import contextlib
+    import io
+
+    import numpy as np
+    kernels = {"pallas": "group_windows_t", "fused": "fused_forward"}
+    for workers in (-1, 0):
+        for impl, kernel in kernels.items():
+            base = impl
+            if workers == 0:
+                base = f"{impl}-inline"
+                got, runs[base] = run_main(
+                    big, os.path.join(td, f"big.{base}.bam"), base,
+                    dict(gather_impl=impl, decode_workers=0), td)
+                check_launches(base, got, (kernel,))
+                same_records(os.path.join(td, f"big.{base}.bam"),
+                             os.path.join(td, f"big.{impl}.bam"),
+                             f"{base}-vs-{impl}")
+            label = f"{base}-traced"
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                got, run = run_main(big, os.path.join(td, f"big.{label}.bam"),
+                                    label, dict(gather_impl=impl,
+                                                decode_workers=workers,
+                                                trace=True), td)
+            check_launches(label, got, (kernel,))
+            same_records(os.path.join(td, f"big.{label}.bam"),
+                         os.path.join(td, f"big.{impl}.bam"),
+                         f"{label}-vs-{impl}")
+            rows = trace_rows(err.getvalue(), run["schedule"]["flushes"],
+                              label)
+            for line in err.getvalue().splitlines():
+                if line.startswith("[trace flush"):
+                    print(f"[trace {label}] {line}")
+            spans = []
+            for name, (a, b) in TRACE_SPANS.items():
+                d = np.array([r[b] - r[a] for r in rows])
+                spans.append(f"{name} median {np.median(d):.4f} s, total "
+                             f"{d.sum():.3f} s")
+            print(f"[trace {label}] {len(rows)} flushes (decode workers "
+                  f"{run['config']['decode_workers']}), last emit at "
+                  f"{rows[-1]['emit1']:.3f} s; " + "; ".join(spans))
+            print(f"[trace {label}] sites/s traced {run['sites_per_s']:.1f},"
+                  f" untraced {runs[base]['sites_per_s']:.1f}")
+
+
+def phase_cache(td, dev="cuda"):
+    """ModelSet.cached on the card: engines of one config share the
+    weights' storage, a device named twice shares one set, and a model
+    file rewritten to another size with its mtime put back reloads."""
+    import shutil
+
+    import numpy as np
+    from hifimeth_tpu_torch.engine.call import (CallConfig, CallEngine,
+                                                default_model_dir)
+
+    def ptr(engine, fused=False):
+        ms = engine.models
+        return (ms.fused["CpG"].buf.data_ptr() if fused
+                else ms.models["CpG"].convs[0].weight.data_ptr())
+
+    engines = {}
+    for impl in ("pallas", "fused"):
+        cfg = CallConfig(device=dev, gather_impl=impl)
+        a, b = engines[impl] = CallEngine(cfg), CallEngine(cfg)
+        if a.models is not b.models or \
+                ptr(a, impl == "fused") != ptr(b, impl == "fused"):
+            raise AssertionError(f"two {impl} engines of one config do not "
+                                 f"share their weights")
+    twice = ["cuda:0", "cuda:0"] if dev == "cuda" else [dev, dev]
+    dp = CallEngine(CallConfig(device=dev, data_parallel=True),
+                    devices=twice)
+    if (dp.replicas[0] is not dp.replicas[1]
+            or dp.models is not engines["pallas"][0].models):
+        raise AssertionError("replicas on one card do not share one set")
+    md = os.path.join(td, "cache_models")
+    shutil.copytree(default_model_dir(), md)
+    cfg = CallConfig(device=dev, model_dir=md)
+    prev = CallEngine(cfg)
+    for name in ("kmer.txt", "CpG.npz"):
+        p = os.path.join(md, name)
+        st = os.stat(p)
+        if name == "kmer.txt":
+            with open(p, "w") as f:
+                f.write(f" {prev.kmer}\n")
+        else:
+            with np.load(p) as z:
+                arrays = {k: z[k] for k in z.files}
+            with open(p, "wb") as f:
+                np.savez(f, **arrays)
+        os.utime(p, ns=(st.st_atime_ns, st.st_mtime_ns))
+        if os.stat(p).st_size == st.st_size:
+            raise AssertionError(f"{name} kept its size")
+        eng = CallEngine(cfg)
+        if eng.models is prev.models or ptr(eng) == ptr(prev):
+            raise AssertionError(f"{name} rewritten to another size with "
+                                 f"its mtime put back did not reload")
+        prev = eng
+    print("[cache] two pallas and two fused engines share weight storage; "
+          "[cuda:0, cuda:0] shares one set; kmer.txt and CpG.npz rewritten "
+          "to another size with the mtime put back each reload")
+
+
+def phase_reference_call(dev="cuda"):
+    """call_sites (the reference per-site path: one window per site by
+    indexing, read bounds masked) against call_sites_group (the pallas
+    path's planned call) on the card, same sites and model, within the
+    parity contract."""
+    import numpy as np
+    import torch
+    from hifimeth_tpu_torch.engine.call import CallConfig, CallEngine
+    from hifimeth_tpu_torch.features.windows import (call_sites,
+                                                     call_sites_group,
+                                                     featurize_planes_t)
+    from hifimeth_tpu_torch.io import native
+    from hifimeth_tpu_torch.ops.gather import (BLOCK_LANES, GROUP,
+                                               PLAN_EXTENT, check_plan,
+                                               plan_groups)
+
+    rng = np.random.default_rng(11)
+    kmer = 401
+    gap = kmer // 2 + 16
+    # reads packed as the engine packs them: a kmer margin, zero-feature
+    # gaps (seq 255, kinetics 0) between reads
+    planes = np.zeros((5, REF_LANES), np.uint8)
+    planes[0] = 255
+    bounds = []
+    at = kmer
+    while True:
+        n = int(rng.integers(2000, 15000))
+        if at + n > REF_LANES - kmer:
+            break
+        planes[0, at:at + n] = rng.choice(4, n, p=PLANT)
+        planes[1:, at:at + n] = rng.integers(0, 256, (4, n))
+        bounds.append((at, at + n))
+        at += n + gap
+    reads = rng.integers(0, len(bounds), REF_SITES)
+    lo = np.array([bounds[r][0] for r in reads], np.int32)
+    hi = np.array([bounds[r][1] for r in reads], np.int32)
+    centers = (lo + (rng.random(REF_SITES) * (hi - lo)).astype(np.int32))
+    centers = np.unique(centers).astype(np.int32)   # sorted, distinct
+    order = np.searchsorted(np.array([b[0] for b in bounds]), centers,
+                            side="right") - 1
+    rstart = np.array([bounds[i][0] for i in order], np.int32)
+    rend = np.array([bounds[i][1] for i in order], np.int32)
+    strands = rng.integers(0, 2, len(centers)).astype(np.uint8)
+    table_t = featurize_planes_t(torch.from_numpy(planes).to(dev))
+    model = CallEngine(CallConfig(device=dev)).models.models["CpG"]
+    with torch.inference_mode():
+        ref = call_sites(model, table_t.T.contiguous(),
+                         *(torch.from_numpy(a).to(dev) for a in (
+                             centers, strands, rstart, rend))).cpu().numpy()
+        got = np.empty(len(centers), np.uint8)
+        for rev in (False, True):
+            sel = np.flatnonzero(strands == int(rev))
+            starts = (centers[sel] - kmer // 2).astype(np.int32)
+            # the engine's plan (CallEngine._call_context) and resolve
+            fast = native.plan_groups_fast(starts, GROUP, BLOCK_LANES,
+                                           PLAN_EXTENT, REF_LANES)
+            if fast is not None:
+                b128, rels, idx = fast
+            else:
+                bases, rels, idx = plan_groups(starts, GROUP, BLOCK_LANES,
+                                               kmer, REF_LANES,
+                                               extent=PLAN_EXTENT)
+                b128 = (bases // 128) * 128
+                rels = rels + (bases - b128)[:, None]
+            check_plan(b128, rels, REF_LANES, kmer)
+            probs = call_sites_group(
+                model, table_t, torch.from_numpy(b128.astype(np.int32)).to(dev),
+                torch.from_numpy(rels.astype(np.int32)).to(dev), rev,
+                kmer).cpu().numpy()
+            if idx is None:
+                got[sel] = probs[:len(sel)]
+            else:
+                part = np.empty(len(sel), np.uint8)
+                part[idx.ravel()] = probs[:idx.size]
+                got[sel] = part
+    d = np.abs(got.astype(int) - ref.astype(int))
+    print(f"[reference call] call_sites vs call_sites_group on the card: "
+          f"{len(centers)} CpG-model sites over {len(bounds)} reads, "
+          f"{int((d > 0).sum())} u8 off, max |diff| {int(d.max())}")
+    if d.max() > 1 or (d > 0).sum() > 0.05 * len(d):
+        raise AssertionError("call_sites and call_sites_group differ beyond "
+                             "the parity contract")
+
+
+def phase_surface(big, td, runs):
+    """Phase 7 (see the module notes)."""
+    t_phase = time.perf_counter()
+    phase_trace(big, td, runs)
+    phase_cache(td)
+    phase_reference_call()
+    print(f"[phase 7] trace, cache and reference call in "
+          f"{time.perf_counter() - t_phase:.3f} s wall")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1488,6 +1742,9 @@ def main() -> int:
 
         # -- phase 6: the model lifecycle ------------------------------------
         phase_lifecycle(td, card)
+
+        # -- phase 7: trace, cache, reference per-site call ----------------
+        phase_surface(big, td, runs)
 
     for row in rows:
         if row["name"] in launches:

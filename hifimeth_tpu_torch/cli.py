@@ -8,6 +8,7 @@ several processes.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 from . import __version__
@@ -80,7 +81,11 @@ OPTIONS:
   --shard I/N          call only the blocks of 10,000 reads I, I+N, ... and
                        write MOD-BAM.shardIIII (merge with merge-shards);
                        under torchrun (WORLD_SIZE set) the rank and world
-                       size give it"""
+                       size give it
+
+HIFIMETH_TRACE=1 prints one line per flush of the asynchronous pipeline,
+  [trace flush N] flush@t dispatch0@t dispatch1@t resolve0@t resolve1@t
+  emit0@t emit1@t (seconds from the first event), as the JAX package does"""
 
 
 def _parse_call(argv):
@@ -170,6 +175,8 @@ def _parse_call(argv):
     if len(pos) != 2:
         print(_CALL_USAGE, file=sys.stderr)
         raise SystemExit(1)
+    # the JAX engine's switch, so one command line traces both packages
+    kw["trace"] = bool(os.environ.get("HIFIMETH_TRACE"))
     return CallConfig(**kw), pos, shard
 
 

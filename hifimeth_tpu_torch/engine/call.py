@@ -40,9 +40,16 @@ caller's thread with one flush in flight, resolved when the next one has
 been dispatched.
 
 Scale-out (parallel/): `data_parallel` splits every batch over a device
-list, each device with its own models, plane segments, table and streams,
-the results gathered back to the first device in site order; `run_call`
-with a multi-process ShardSpec calls only that process's read blocks.
+list, each device with its own plane segments, table and streams and the
+device's read-only models (ModelSet.cached: a device named twice shares
+them), the results gathered back to the first device in site order;
+`run_call` with a multi-process ShardSpec calls only that process's read
+blocks.
+
+With `trace` (CLI: HIFIMETH_TRACE set, as in the JAX package) the async
+pipeline stamps seven events per flush, `flush` (handed to the dispatch
+queue), `dispatch0/1`, `resolve0/1` and `emit0/1` (around each worker's
+work), and log_timers prints one `[trace flush N]` line per flush.
 """
 from __future__ import annotations
 
@@ -128,6 +135,9 @@ class CallConfig:
                                          # in progress with every flush
     data_parallel: bool = False          # split each batch over every local
                                          # device (pallas, slice, folded)
+    trace: bool = False                  # per-flush pipeline timeline on
+                                         # stderr (async mode; the CLI sets
+                                         # it from HIFIMETH_TRACE)
 
     def resolve_model_dir(self) -> str:
         return self.model_dir or default_model_dir()
@@ -319,7 +329,47 @@ def resolve_decode_workers(n: int) -> int:
 
 class ModelSet:
     """Per-context DNAModNet modules on one device, plus the window size;
-    with `fused`, each context's weights also packed for the fused kernel."""
+    with `fused`, each context's weights also packed for the fused kernel.
+    The modules are in eval mode without gradients and are never mutated,
+    so one set may serve every engine and replica on its device."""
+
+    #: process-level cache (see ModelSet.cached): key -> ModelSet
+    _cache: dict = {}
+    _cache_lock = threading.Lock()
+
+    @classmethod
+    def cached(cls, model_dir: str, contexts, device, fused: bool = False,
+               compute_dtype=torch.float32) -> "ModelSet":
+        """The process-level cache of device-resident weights (the JAX
+        engine's ModelSet.cached): engines built from one model directory
+        on one device share one read-only set.
+
+        The key holds the model directory's real path, the contexts, the
+        resolved device, `fused`, the compute dtype and each model file's
+        (st_mtime_ns, st_size), so a rewritten file reloads even when its
+        mtime was put back.  Inserting a set evicts the sets of the same
+        directory and settings with other file stamps.  One lock covers
+        lookup, load and insert, so concurrent callers get one object."""
+        device = resolve_device(device)
+        setting = (os.path.realpath(model_dir), tuple(contexts), str(device),
+                   bool(fused), str(compute_dtype))
+        stamps = []
+        for name in [f"{c}.npz" for c in contexts] + ["kmer.txt"]:
+            try:
+                st = os.stat(os.path.join(model_dir, name))
+                stamps.append((st.st_mtime_ns, st.st_size))
+            except FileNotFoundError:
+                stamps.append(None)
+        key = setting + tuple(stamps)
+        with cls._cache_lock:
+            ms = cls._cache.get(key)
+            if ms is None:
+                ms = cls(model_dir, contexts, device, fused, compute_dtype)
+                for k in [k for k in cls._cache
+                          if k[:len(setting)] == setting]:
+                    del cls._cache[k]
+                cls._cache[key] = ms
+            return ms
 
     def __init__(self, model_dir: str, contexts, device: torch.device,
                  fused: bool = False, compute_dtype=torch.float32):
@@ -338,7 +388,8 @@ class ModelSet:
             path = os.path.join(model_dir, f"{ctx}.npz")
             if not os.path.exists(path):
                 raise FileNotFoundError(f"model file {path} not found")
-            self.models[ctx] = load_model_npz(path, device, compute_dtype)
+            self.models[ctx] = load_model_npz(
+                path, device, compute_dtype).requires_grad_(False)
             if fused:
                 self.fused[ctx] = prepare_fused_params(self.models[ctx],
                                                        device, self.kmer)
@@ -409,11 +460,12 @@ class CallEngine:
             # overlap the previous flush's kernels
             self._computes = [torch.cuda.Stream(d) for d in self.devices]
             self._copies = [torch.cuda.Stream(d) for d in self.devices]
-        #: one ModelSet per device: replicas never share a tensor
+        #: one ModelSet per device, from the process-level cache: a device
+        #: named twice shares one read-only set
         self.replicas = [
-            ModelSet(cfg.resolve_model_dir(), cfg.contexts, d,
-                     fused=cfg.gather_impl == "fused",
-                     compute_dtype=self.compute_dtype)
+            ModelSet.cached(cfg.resolve_model_dir(), cfg.contexts, d,
+                            fused=cfg.gather_impl == "fused",
+                            compute_dtype=self.compute_dtype)
             for d in self.devices]
         self.models = self.replicas[0]
         self.kmer = self.models.kmer
@@ -437,6 +489,11 @@ class CallEngine:
         self.timers = {"decode": 0.0, "sites": 0.0, "pack": 0.0,
                        "flush": 0.0, "dispatch": 0.0, "resolve": 0.0,
                        "mmbuild": 0.0}
+        #: the per-flush pipeline timeline (cfg.trace): (flush number,
+        #: stage, time) events, printed by log_timers
+        self._trace_on = cfg.trace
+        self._trace_events: list = []
+        self._queued = 0
         self._reset_buffer()
 
     @staticmethod
@@ -737,7 +794,9 @@ class CallEngine:
         if self._async_active():
             self._ensure_pipeline()
             self._check_exc()
-            self._dispatch_q.put((pending, work))
+            seq, self._queued = self._queued, self._queued + 1
+            self._trace("flush", seq)
+            self._dispatch_q.put((seq, pending, work))
             self.timers["flush"] += time.perf_counter() - t0
             return
         self.timers["flush"] += time.perf_counter() - t0
@@ -1106,14 +1165,16 @@ class CallEngine:
                 if item is None:
                     self._resolve_q.put(None)
                     return
-                pending, work = item
+                seq, pending, work = item
                 futures = None
+                self._trace("dispatch0", seq)
                 try:
                     if self._exc is None and work is not None:
                         futures = self._dispatch_work(work)
                 except BaseException as e:  # noqa: BLE001 - raised on the caller
                     self._fail(e)
-                self._resolve_q.put((pending, futures))
+                self._trace("dispatch1", seq)
+                self._resolve_q.put((seq, pending, futures))
 
     def _resolve_worker(self):
         """Stage 3: wait for the flush's event, unsort."""
@@ -1122,14 +1183,16 @@ class CallEngine:
             if item is None:
                 self._emit_q.put(None)
                 return
-            pending, futures = item
+            seq, pending, futures = item
             probs = None
+            self._trace("resolve0", seq)
             try:
                 if self._exc is None:
                     probs = self._resolve(futures)
             except BaseException as e:  # noqa: BLE001 - raised on the caller
                 self._fail(e)
-            self._emit_q.put((pending, probs))
+            self._trace("resolve1", seq)
+            self._emit_q.put((seq, pending, probs))
 
     def _emit_worker(self):
         """Stage 4: MM/ML build + the ordered record sink."""
@@ -1137,7 +1200,8 @@ class CallEngine:
             item = self._emit_q.get()
             if item is None:
                 return
-            pending, probs = item
+            seq, pending, probs = item
+            self._trace("emit0", seq)
             try:
                 if self._exc is None and probs is not None:
                     local: list = []
@@ -1146,6 +1210,7 @@ class CallEngine:
                         self.sink(rec)
             except BaseException as e:  # noqa: BLE001 - raised on the caller
                 self._fail(e)
+            self._trace("emit1", seq)
 
     def finalize(self, out: list):
         """Flush any packed reads and drain the pipeline (or resolve the
@@ -1170,7 +1235,24 @@ class CallEngine:
             t.join()
         self._threads = []
 
+    def _trace(self, stage: str, seq: int) -> None:
+        """Stamp one stage of flush `seq` (cfg.trace; async mode only)."""
+        if self._trace_on:
+            self._trace_events.append((seq, stage, time.perf_counter()))
+
     def log_timers(self):
+        """The stage timers on stderr; with cfg.trace first one line per
+        flush, `[trace flush N] flush@t dispatch0@t ...`, in seconds from
+        the first event (the JAX engine's format)."""
+        if self._trace_events:
+            t0 = min(t for _, _, t in self._trace_events)
+            rows: dict = {}
+            for seq, stage, t in self._trace_events:
+                rows.setdefault(seq, []).append(f"{stage}@{t - t0:.3f}")
+            for seq in sorted(rows):
+                print(f"[trace flush {seq}] " + " ".join(rows[seq]),
+                      file=sys.stderr)
+            self._trace_events.clear()
         parts = ", ".join(f"{k}={v:.2f}s" for k, v in self.timers.items())
         print(f"[engine timers] {parts}", file=sys.stderr)
 

@@ -89,3 +89,8 @@ def scan_all(seq: np.ndarray):
             "CHG": (chg, np.zeros(len(chg), np.uint8)),
             "CHH": (chh, chs)}
 
+
+def site_strands_for_c_or_g(seq: np.ndarray, offs: np.ndarray) -> np.ndarray:
+    """Strand by modified-base identity ('C' -> FWD, anything else -> REV;
+    eval_kmer_features.cpp:25-35)."""
+    return np.where(seq[offs] == _C, FWD, REV).astype(np.uint8)

@@ -19,6 +19,10 @@ per-site windows cut by indexing with each site's read bounds masked
 (`gather_windows_slice`, `gather_windows_folded`), and the CNN per batch
 (`call_sites_batched`).  They have no kernel in either package.
 
+`gather_windows` and `call_sites` are the JAX package's reference per-site
+path: one window per site by plain indexing (no plan, no kernel), against
+which the planned paths are held.
+
 The trainer's batches (`gather_and_featurize`) skip the table: each window
 reads the raw u8 planes of its positions and featurizes them, as in the
 JAX package's training pipeline.
@@ -133,6 +137,35 @@ def _mask_and_orient(w: torch.Tensor, centers: torch.Tensor,
     perm = list(REV_CHANNEL_PERM) + list(range(8, w.shape[-1]))
     w_rev = w.flip(1)[..., perm]
     return torch.where((strands != 0)[:, None, None], w_rev, w)
+
+
+def gather_windows(feats: torch.Tensor, centers: torch.Tensor,
+                   strands: torch.Tensor, rstart: torch.Tensor,
+                   rend: torch.Tensor,
+                   kmer_size: int = KMER_SIZE) -> torch.Tensor:
+    """The reference per-site gather (the JAX package's gather_windows):
+    (N, 8) table -> (B, kmer, 8) float32 windows around each site's center,
+    descending on the reverse strand with the complement/swap channel
+    permutation, zero outside the site's read [rstart, rend) (windows never
+    cross read boundaries, eval_kmer_features.cpp:40).  Plain indexing on
+    the table's device; no kernel."""
+    j = torch.arange(kmer_size, dtype=torch.int64,
+                     device=feats.device) - kmer_size // 2
+    is_rev = (strands != 0)[:, None]
+    pos = centers.to(torch.int64)[:, None] + torch.where(is_rev, -j, j)
+    valid = (pos >= rstart[:, None]) & (pos < rend[:, None])
+    w = feats[pos.clamp(0, feats.shape[0] - 1)]
+    w = torch.where(is_rev[..., None], w[..., list(REV_CHANNEL_PERM)], w)
+    return w * valid[..., None].to(w.dtype)
+
+
+def call_sites(model: DNAModNet, feats: torch.Tensor, centers: torch.Tensor,
+               strands: torch.Tensor, rstart: torch.Tensor,
+               rend: torch.Tensor, kmer_size: int = KMER_SIZE) -> torch.Tensor:
+    """gather_windows -> the CNN -> (B,) u8 scaled probs (the JAX package's
+    call_sites)."""
+    w = gather_windows(feats, centers, strands, rstart, rend, kmer_size)
+    return logits_to_scaled_probs(model(w.transpose(1, 2).contiguous()))
 
 
 def _window_rows(first: torch.Tensor, kmer: int) -> torch.Tensor:

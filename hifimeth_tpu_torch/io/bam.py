@@ -64,6 +64,9 @@ class BamHeader:
     def tid2name(self, tid: int) -> str:
         return self.refs[tid][0]
 
+    def tid2len(self, tid: int) -> int:
+        return self.refs[tid][1]
+
     @property
     def n_refs(self) -> int:
         return len(self.refs)

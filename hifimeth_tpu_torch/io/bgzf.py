@@ -238,6 +238,10 @@ class BgzfReader(io.RawIOBase):
                 remaining -= take
         return b"".join(out)
 
+    def read_all(self) -> bytes:
+        """Inflate the rest of the file and return its payload."""
+        return self.read(-1)
+
     def close(self) -> None:
         if self.closed:
             return

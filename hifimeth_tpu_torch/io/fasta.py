@@ -92,3 +92,6 @@ class FastaDatabase:
     def seq_bases(self, sid: int) -> np.ndarray:
         """Uppercased ASCII uint8 array."""
         return self.seqs[sid]
+
+    def seq_str(self, sid: int) -> str:
+        return self.seqs[sid].tobytes().decode()

@@ -11,6 +11,9 @@ import ctypes
 
 import numpy as np
 
+from ..constants import (BAM_NIBBLE_TO_BASE, BASE_COMPLEMENT,
+                         encode_frames_codev1)
+
 _LIB = None
 
 
@@ -35,6 +38,13 @@ def _load():
     lib.hm_bgzf_inflate.argtypes = [u8p, i64p, i32p, c_i64, u8p, i64p, i32p, c_i32]
     lib.hm_bgzf_compress.restype = c_i64
     lib.hm_bgzf_compress.argtypes = [u8p, c_i64, u8p, c_i64, c_i32, c_i32, c_i32]
+    lib.hm_seq_unpack.restype = None
+    lib.hm_seq_unpack.argtypes = [u8p, c_i64, u8p]
+    lib.hm_revcomp.restype = None
+    lib.hm_revcomp.argtypes = [u8p, c_i64, u8p]
+    lib.hm_encode_codev1.restype = None
+    lib.hm_encode_codev1.argtypes = [ctypes.POINTER(ctypes.c_uint16), c_i64,
+                                     u8p]
     lib.hm_scan_sites.restype = None
     lib.hm_scan_sites.argtypes = [u8p, c_i64, i32p, i64p, i32p, i64p,
                                   i32p, u8p, i64p]
@@ -145,6 +155,43 @@ def bgzf_compress_buffer(raw: bytes, level: int = 6, n_threads: int = 8):
     if r < 0:
         raise ValueError("BGZF compress failed")
     return out[:r].tobytes()
+
+
+def seq_unpack(nibbles: bytes, l_seq: int) -> np.ndarray:
+    """BAM 4-bit SEQ -> l_seq ASCII bytes."""
+    arr = np.frombuffer(nibbles, np.uint8)
+    lib = _load()
+    if not lib:
+        return np.stack([BAM_NIBBLE_TO_BASE[arr >> 4],
+                         BAM_NIBBLE_TO_BASE[arr & 15]], 1).reshape(-1)[:l_seq]
+    out = np.empty(l_seq, np.uint8)
+    lib.hm_seq_unpack(_u8p(np.ascontiguousarray(arr)), l_seq, _u8p(out))
+    return out
+
+
+def revcomp(seq: np.ndarray) -> np.ndarray:
+    """Reverse complement of an ASCII sequence (ACGTacgtNn; anything else
+    -> N)."""
+    seq = np.ascontiguousarray(seq, np.uint8)
+    lib = _load()
+    if not lib:
+        return BASE_COMPLEMENT[seq[::-1]]
+    out = np.empty(len(seq), np.uint8)
+    lib.hm_revcomp(_u8p(seq), len(seq), _u8p(out))
+    return out
+
+
+def encode_codev1(frames: np.ndarray) -> np.ndarray:
+    """Raw kinetics frames -> codeV1 bytes."""
+    frames = np.ascontiguousarray(frames, np.uint16)
+    lib = _load()
+    if not lib:
+        return encode_frames_codev1(frames)
+    out = np.empty(len(frames), np.uint8)
+    lib.hm_encode_codev1(
+        frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), len(frames),
+        _u8p(out))
+    return out
 
 
 def scan_sites(seq: np.ndarray):

@@ -13,7 +13,8 @@ Then derive per-context adaptive thresholds (quant/threshold.py) and replay
 the spill per chromosome into pcov/ncov arrays, emitting three 6-column BEDs
 `chr start end freq% pcov ncov` with freq = 100*p/(p+n) (pileup.cpp:513-595).
 
-Three entry points: `run_pileup` (one process), `run_pileup_parallel` (pass 1
+Three entry points: `run_pileup` (one process, or one read shard of several
+processes that share a filesystem), `run_pileup_parallel` (pass 1
 and pass 2 fanned out over spawned numpy-only worker processes) and
 `run_pileup_multihost` (one process per rank of a torch.distributed group:
 the histograms and each chromosome's per-site partial counts are summed by
@@ -166,7 +167,7 @@ class PileupSpill:
 
     The reference's read_base_mods temp file (pileup.cpp:485-505): input
     order over a coordinate-sorted BAM keeps the spill sid-ordered, so the
-    replay is a sequential scan (`_sid_grouped(spill.path)`)."""
+    replay is a sequential scan."""
 
     def __init__(self, flush_records: int = 1 << 20, dir=None):
         self._buf: list[np.ndarray] = []
@@ -193,6 +194,33 @@ class PileupSpill:
         self.flush()
         self._fh.close()
 
+    def replay(self, chunk: int = 1 << 20):
+        """Yield record chunks in file order (after finish)."""
+        return _read_spill(self.path, chunk)
+
+    def cleanup(self) -> None:
+        _remove(self.path)
+
+
+class _ExternalSpill:
+    """Replay wrapper over a finished spill file given by path: another
+    shard's on a shared filesystem, or a pool worker's."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def replay(self, chunk: int = 1 << 20):
+        return _read_spill(self.path, chunk)
+
+
+def _read_spill(path: str, chunk: int):
+    with open(path, "rb") as f:
+        while True:
+            arr = np.fromfile(f, dtype=SPILL_DTYPE, count=chunk)
+            if len(arr) == 0:
+                return
+            yield arr
+
 
 def _remove(path: str) -> None:
     try:
@@ -201,20 +229,17 @@ def _remove(path: str) -> None:
         pass
 
 
-def _sid_grouped(path: str, chunk: int = 1 << 20):
-    """Yield (sid, record-part) pairs from a sid-ordered spill file."""
-    with open(path, "rb") as f:
-        while True:
-            arr = np.fromfile(f, dtype=SPILL_DTYPE, count=chunk)
-            if len(arr) == 0:
-                return
-            sids = arr["sid"]
-            if sids[0] == sids[-1]:          # single-sid chunk: no copy
-                yield int(sids[0]), arr
-                continue
-            cuts = np.flatnonzero(np.diff(sids)) + 1
-            for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(sids)]):
-                yield int(sids[lo]), arr[lo:hi]
+def _sid_grouped(src, chunk: int = 1 << 20):
+    """Yield (sid, record-part) pairs from a sid-ordered spill (anything
+    with `replay`)."""
+    for arr in src.replay(chunk):
+        sids = arr["sid"]
+        if sids[0] == sids[-1]:              # single-sid chunk: no copy
+            yield int(sids[0]), arr
+            continue
+        cuts = np.flatnonzero(np.diff(sids)) + 1
+        for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(sids)]):
+            yield int(sids[lo]), arr[lo:hi]
 
 
 def _pass1_stream(reader, hdr, db, cfg, shard, bins, spill) -> int:
@@ -335,9 +360,11 @@ def _open_beds(output_prefix: str, suffix: str) -> list:
             for ctx in CONTEXT_NAMES]
 
 
-def _pass2(db, thresholds, spill_paths, output_prefix: str, my_chroms,
+def _pass2(db, thresholds, spills, output_prefix: str, my_chroms,
            suffix: str) -> int:
-    """Per-chromosome multi-way merge over sid-ordered spill files; memory
+    """Per-chromosome multi-way merge over sid-ordered spills (anything
+    with `replay`: this process's PileupSpill, other processes' files as
+    _ExternalSpill); memory
     bounded by one chromosome (pileup.cpp:513-560).
 
     `my_chroms` is either a set of owned sids or a dict sid -> (lo, hi)
@@ -346,7 +373,7 @@ def _pass2(db, thresholds, spill_paths, output_prefix: str, my_chroms,
     span; BED part files concatenate in span order to the serial bytes)."""
     outs = _open_beds(output_prefix, suffix)
     rows = 0
-    streams = [_sid_grouped(p) for p in spill_paths]
+    streams = [_sid_grouped(s) for s in spills]
     heads = [next(s, None) for s in streams]
     while any(h is not None for h in heads):
         sid = min(h[0] for h in heads if h is not None)
@@ -379,7 +406,7 @@ def _pass2(db, thresholds, spill_paths, output_prefix: str, my_chroms,
 PASS2_CHUNK = 1 << 22
 
 
-def _pass2_collective(db, thresholds, spill_path: str, output_prefix: str,
+def _pass2_collective(db, thresholds, spill, output_prefix: str,
                       shard, suffix: str, chunk: int = PASS2_CHUNK) -> int:
     """Distributed pass 2 on collectives.
 
@@ -397,7 +424,7 @@ def _pass2_collective(db, thresholds, spill_path: str, output_prefix: str,
     my_chroms = set(chromosome_ranges(db.num_seqs, shard))
     outs = _open_beds(output_prefix, suffix)
     rows = 0
-    stream = _sid_grouped(spill_path)
+    stream = _sid_grouped(spill)
     head = next(stream, None)
     for sid in range(db.num_seqs):
         size = db.seq_length(sid)
@@ -460,7 +487,7 @@ def _check_input(mod_bam_path: str) -> None:
 
 def _pass1(reference_path: str, mod_bam_path: str, cfg, shard, spill_dir,
            io_threads: int, db=None):
-    """Pass 1 over one read shard: (bins, spill path, n_reads)."""
+    """Pass 1 over one read shard: (bins, finished PileupSpill, n_reads)."""
     reader = BamReader(mod_bam_path, threads=io_threads)
     try:
         db = db or FastaDatabase(reference_path)
@@ -473,27 +500,49 @@ def _pass1(reference_path: str, mod_bam_path: str, cfg, shard, spill_dir,
             spill.finish()
     finally:
         reader.close()
-    return bins, spill.path, n_reads
+    return bins, spill, n_reads
 
 
 def run_pileup(reference_path: str, mod_bam_path: str, output_prefix: str,
                cfg: PileupConfig | None = None,
-               spill_dir: str | None = None) -> dict:
-    """Genome-wide quantification in this process."""
+               spill_dir: str | None = None, shard: ShardSpec | None = None,
+               bins_reduce=None, extra_spill_paths: list[str] | None = None,
+               keep_spill: bool = False) -> dict:
+    """Genome-wide quantification in this process.
+
+    Sharded over processes that share a filesystem and no collective group
+    (shard = ShardSpec with num_processes > 1): this process histograms and
+    maps only its round-robin read blocks, `bins_reduce` turns its 256-bin
+    histograms into the global ones (the sum over every shard), pass 2
+    covers this process's round-robin chromosomes over its own spill and
+    every other shard's (`extra_spill_paths`), and the BED rows go to
+    per-shard files that merge_pileup_shards joins.  `keep_spill` keeps
+    this process's spill file and returns its path as "spill_path", for the
+    other shards' pass 2."""
     cfg = cfg or PileupConfig()
+    shard = shard or ShardSpec()
     _check_input(mod_bam_path)
     db = FastaDatabase(reference_path)
-    bins, spill_path, n_reads = _pass1(reference_path, mod_bam_path, cfg,
-                                       ShardSpec(), spill_dir,
-                                       cfg.io_threads, db)
+    bins, spill, n_reads = _pass1(reference_path, mod_bam_path, cfg, shard,
+                                  spill_dir, cfg.io_threads, db)
     try:
+        if bins_reduce is not None:
+            bins = bins_reduce(bins)
         thresholds = _thresholds(bins)
-        rows = _pass2(db, thresholds, [spill_path], output_prefix,
-                      set(range(db.num_seqs)), "")
+        suffix = ""
+        if shard.num_processes > 1:
+            suffix = f".shard{shard.process_id:04d}"
+            _write_chroms_sidecar(output_prefix, db)
+        spills = [spill] + [_ExternalSpill(p)
+                            for p in extra_spill_paths or ()]
+        rows = _pass2(db, thresholds, spills, output_prefix,
+                      set(chromosome_ranges(db.num_seqs, shard)), suffix)
     finally:
-        _remove(spill_path)
+        if not keep_spill:
+            spill.cleanup()
     return {"reads": n_reads, "thresholds": thresholds.tolist(),
-            "bed_rows": rows, "bins": bins}
+            "bed_rows": rows, "bins": bins,
+            "spill_path": spill.path if keep_spill else None}
 
 
 def _pass2_worker(args):
@@ -502,15 +551,17 @@ def _pass2_worker(args):
     order.  numpy only."""
     reference_path, thresholds, spill_paths, prefix, spans, suffix = args
     return _pass2(_get_db(reference_path), np.asarray(thresholds, np.uint8),
-                  spill_paths, prefix, spans, suffix)
+                  [_ExternalSpill(p) for p in spill_paths], prefix, spans,
+                  suffix)
 
 
 def _pass1_worker(args):
     """Pool worker: pass 1 for one shard -> (bins, spill path, n_reads).
     numpy only."""
     reference_path, mod_bam_path, cfg, shard, spill_dir = args
-    return _pass1(reference_path, mod_bam_path, cfg, shard, spill_dir, 2,
-                  _get_db(reference_path))
+    bins, spill, n_reads = _pass1(reference_path, mod_bam_path, cfg, shard,
+                                  spill_dir, 2, _get_db(reference_path))
+    return bins, spill.path, n_reads
 
 
 _DB_CACHE: dict = {}
@@ -591,8 +642,9 @@ def run_pileup_parallel(reference_path: str, mod_bam_path: str,
         # serial bytes.  Tiny genomes stay serial.
         n_jobs = min(workers, max(1, total // (1 << 18)))
         if n_jobs == 1:
-            rows = _pass2(db, thresholds, spill_paths, output_prefix,
-                          set(range(db.num_seqs)), "")
+            rows = _pass2(db, thresholds,
+                          [_ExternalSpill(p) for p in spill_paths],
+                          output_prefix, set(range(db.num_seqs)), "")
         else:
             target = -(-total // n_jobs)
             spans: list[dict] = [dict() for _ in range(n_jobs)]
@@ -643,16 +695,16 @@ def run_pileup_multihost(reference_path: str, mod_bam_path: str,
     cfg = cfg or PileupConfig()
     _check_input(mod_bam_path)
     db = FastaDatabase(reference_path)
-    bins, spill_path, n_reads = _pass1(reference_path, mod_bam_path, cfg,
-                                       shard, spill_dir, cfg.io_threads, db)
+    bins, spill, n_reads = _pass1(reference_path, mod_bam_path, cfg, shard,
+                                  spill_dir, cfg.io_threads, db)
     try:
         bins = psum_histograms_multihost(bins)
         thresholds = _thresholds(bins)
         _write_chroms_sidecar(output_prefix, db)
-        rows = _pass2_collective(db, thresholds, spill_path, output_prefix,
+        rows = _pass2_collective(db, thresholds, spill, output_prefix,
                                  shard, f".shard{shard.process_id:04d}")
     finally:
-        _remove(spill_path)
+        spill.cleanup()
     return {"reads": n_reads, "thresholds": thresholds.tolist(),
             "bed_rows": rows, "bins": bins}
 

@@ -31,6 +31,14 @@ def warn(msg: str, *args) -> None:
     print(f"[{_ts()}] WARNING: {msg}", file=sys.stderr, flush=True)
 
 
+def die(msg: str, *args) -> "SystemExit":
+    """Log an error and exit 1."""
+    if args:
+        msg = msg % args
+    print(f"[{_ts()}] ERROR: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
 def peak_rss_bytes() -> int:
     # ru_maxrss is KiB on Linux.
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024

@@ -292,8 +292,9 @@ def test_data_parallel_over_four_cpu_replicas(tmp_path, impl):
 
 def test_data_parallel_engine_rules(tmp_path, capsys):
     """fused warns and runs on one device; one local device is the
-    single-device path; replicas share no tensor; a device list needs
-    data_parallel."""
+    single-device path; replicas of one device share one read-only model
+    set (ModelSet.cached) and have their own plane segments; a device list
+    needs data_parallel."""
     eng = CallEngine(CallConfig(gather_impl="fused", data_parallel=True,
                                 contexts=("CpG",), device="cpu"),
                      devices=["cpu"] * 2)
@@ -306,7 +307,7 @@ def test_data_parallel_engine_rules(tmp_path, capsys):
     eng = CallEngine(CallConfig(data_parallel=True, contexts=("CpG",),
                                 device="cpu"), devices=["cpu"] * 3)
     w = [r.models["CpG"].convs[0].weight for r in eng.replicas]
-    assert len({t.data_ptr() for t in w}) == 3
+    assert len({t.data_ptr() for t in w}) == 1
     segs = eng._ship(np.zeros((5, 64), np.uint8))
     assert len({t.data_ptr() for t, _ in segs}) == 3
     with pytest.raises(ValueError, match="data_parallel"):

@@ -108,6 +108,52 @@ def test_pileup_parallel_equals_one_process(tmp_path):
     assert _beds(tmp_path / "bone") == _beds(tmp_path / "bpar")
 
 
+def _shared_fs_shards(run, merge, shard_spec, fasta, bam, tmp_path, name):
+    """Two processes over a shared filesystem, simulated in turn (the JAX
+    package's tests/test_dist.py recipe): each shard's pass 1 with its
+    spill kept, the histograms summed, then each shard's pass 2 over its
+    own spill and the other's, and the shard BEDs merged."""
+    harvest = [run(str(fasta), str(bam), str(tmp_path / f"{name}h{pid}"),
+                   spill_dir=str(tmp_path), shard=shard_spec(pid, 2, 3),
+                   keep_spill=True) for pid in range(2)]
+    bins = harvest[0]["bins"] + harvest[1]["bins"]
+    prefix = str(tmp_path / name)
+    for pid in range(2):
+        run(str(fasta), str(bam), prefix, spill_dir=str(tmp_path),
+            shard=shard_spec(pid, 2, 3), bins_reduce=lambda local: bins,
+            extra_spill_paths=[harvest[1 - pid]["spill_path"]])
+    merge(prefix, 2)
+    return harvest, bins, prefix
+
+
+def test_shared_filesystem_shards_equal_one_process_and_jax(tmp_path):
+    from hifimeth_tpu.parallel.dist import ShardSpec as JaxShardSpec
+    from hifimeth_tpu.quant.pileup import \
+        merge_pileup_shards as jax_merge_pileup_shards
+    from hifimeth_tpu_torch.parallel.dist import ShardSpec
+
+    rng = np.random.default_rng(9)
+    fasta, bam, _, _ = make_mapped_mod_bam(tmp_path, rng, n_reads=30)
+    one = run_pileup(str(fasta), str(bam), str(tmp_path / "one"),
+                     spill_dir=str(tmp_path))
+    assert one["spill_path"] is None and one["bed_rows"] > 0
+    harvest, bins, prefix = _shared_fs_shards(
+        run_pileup, merge_pileup_shards, ShardSpec, fasta, bam, tmp_path,
+        "sh")
+    assert all(os.path.exists(h["spill_path"]) for h in harvest)
+    assert all(h["reads"] > 0 for h in harvest)
+    np.testing.assert_array_equal(bins, one["bins"])
+    assert _beds(prefix) == _beds(tmp_path / "one")
+    _, jbins, jprefix = _shared_fs_shards(
+        jax_run_pileup, jax_merge_pileup_shards, JaxShardSpec, fasta, bam,
+        tmp_path, "jsh")
+    np.testing.assert_array_equal(bins, jbins)
+    assert _beds(prefix) == _beds(jprefix)
+    # only the four kept spills (two per package) are left behind
+    assert len([f for f in os.listdir(tmp_path)
+                if f.startswith("read_base_mods_")]) == 4
+
+
 def test_spawned_workers_never_touch_cuda(tmp_path):
     """The pool is spawned with the cards hidden, and a worker's pileup
     imports no torch at all."""
