@@ -100,7 +100,26 @@ Phases (any failure exits non-zero before the final line is printed):
     rewritten to another size with the mtime put back reload); and
     call_sites, the reference per-site call, against call_sites_group on
     the same 16 Ki sites within the parity contract.  The phase prints its
-    wall seconds.
+    wall seconds;
+ 8. graphs on the card (CallConfig.graphs; phases 1-7 run with it on, the
+    default): the big input through pallas and fused four times each in
+    turns with graphs off and on (eager, graph, graph, eager), and through
+    pallas-bf16 and the pallas split over ["cuda:0", "cuda:0"] once with
+    graphs off (their graph turns are their runs of phases 3 and 5), each
+    run with the counts and the peak device memory set to 0 just before it
+    and read just after: every run byte-equal to phase 3's run of its path
+    (the split to phase 3's pallas), launching its kernel as often as the
+    graph runs of its path (126 on the smoke input; the split more, as its
+    plans pad to two devices) and no other; per run its sites/s, the
+    engine's capture seconds (inside the run's wall) and its peak device
+    memory, allocated and reserved; then the default async pallas and
+    fused runs under torch.profiler (scripts/profile_torch_call.py's
+    device_profile), whose idle share is printed, whose device time must
+    include the path's kernel, and whose device kernels of each name must
+    number the wrapper's launches plus the programs' warm-ups
+    (engine/programs.py warmup_launches): the profiler sees the kernels
+    inside graphs one by one, so the counts are measured, not booked.
+    The phase prints its wall seconds.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  window_rows lies on no path of the
 repository: its `launches` are its phase-2 launches.
@@ -822,8 +841,10 @@ def kernel_wrappers():
 
 
 def reset_launches():
+    from hifimeth_tpu_torch.engine import programs
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    programs.warmup_launches.clear()
 
 
 def read_launches():
@@ -833,11 +854,17 @@ def read_launches():
 def run_main(big, out, label, fields, td, devices=None):
     """One main-path run of `call` with CallConfig `fields` (and the
     engine's device list `devices`); every kernel's count is set to 0 just
-    before it and read just after.  Returns the launch counts and the run's
-    stats JSON."""
+    before it and read just after, and so is the peak device memory.
+    Returns the launch counts and the run's stats JSON, with its sites/s,
+    its launches and its peak device memory (MiB allocated, reserved)."""
+    import gc
+
     import torch
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
     stats_json = os.path.join(td, f"stats.{label}.json")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     stats = run_call(big, out, CallConfig(device="cuda", stats_json=stats_json,
@@ -849,6 +876,9 @@ def run_main(big, out, label, fields, td, devices=None):
     with open(stats_json) as f:
         run = json.load(f)
     run["sites_per_s"] = n_sites / secs
+    run["launches"] = launches
+    run["peak_mib"] = (torch.cuda.max_memory_allocated() / 2**20,
+                       torch.cuda.max_memory_reserved() / 2**20)
     print(f"[main {label}] {stats['reads']} reads, {stats['bases']} bases, "
           f"{n_sites} sites ({', '.join(f'{c} {stats[c]}' for c in CONTEXTS)})"
           f" in {secs:.3f} s = {n_sites / secs:.1f} sites/s; launches "
@@ -965,6 +995,7 @@ def phase_scale_out(big, td, runs):
                                  f"{run['config']['devices']}")
         if impl == "pallas":
             same_records(out(label), pallas, f"{label}-vs-pallas")
+            runs[label] = run
         else:
             compare(out(label), out("slice"), f"{label}-vs-slice")
         print(f"[scale-out] {label} sites/s {run['sites_per_s']:.1f}")
@@ -1609,6 +1640,110 @@ def phase_reference_call(dev="cuda"):
                              "the parity contract")
 
 
+# -- phase 8: graphs on the card -----------------------------------------------
+
+#: phase 8's paths: label -> (CallConfig fields, the device list, the kernel
+#: the run must launch, phase 3's run its records must equal, the turns'
+#: graphs settings).  bf16 and the split run one eager turn: their graph
+#: turn is their run of phase 3 (bf16) or phase 5 (the split), graphs on
+#: by default there
+GRAPH_RUNS = {
+    "pallas": (dict(gather_impl="pallas"), None, "group_windows_t", "pallas",
+               (False, True, True, False)),
+    "fused": (dict(gather_impl="fused"), None, "fused_forward", "fused",
+              (False, True, True, False)),
+    "pallas-bf16": (dict(gather_impl="pallas", compute_dtype="bfloat16"),
+                    None, "group_windows_t", "pallas-bf16", (False,)),
+    "pallas-split": (dict(gather_impl="pallas", data_parallel=True),
+                     ["cuda:0", "cuda:0"], "group_windows_t", "pallas",
+                     (False,)),
+}
+#: each profiled path's wrapper, its device_profile class and the names of
+#: the device kernels one launch of the wrapper runs (each once)
+PROFILED = {
+    "pallas": ("group_windows_t", "gather kernel",
+               ("group_windows_kernel",)),
+    "fused": ("fused_forward", "fused kernel",
+              ("fused_head_kernel", "fused_mid_kernel", "fused_tail_kernel")),
+}
+
+
+def print_graph_turn(name, run, note):
+    print(f"[graphs {name}] {note}; sites/s {run['sites_per_s']:.1f}, "
+          f"capture {run['timers']['capture']:.4f} s (inside the run's "
+          f"wall), peak device memory {run['peak_mib'][0]:.1f} MiB "
+          f"allocated, {run['peak_mib'][1]:.1f} MiB reserved")
+
+
+def phase_graphs(big, td, runs):
+    """Phase 8 (see the module notes); `runs` holds phase 3's and phase
+    5's stats."""
+    import torch
+    from profile_torch_call import device_profile
+
+    from hifimeth_tpu_torch.engine import programs
+    from hifimeth_tpu_torch.engine.call import CallConfig, run_call
+    t_phase = time.perf_counter()
+    for label, (fields, devices, kernel, ref, turns) in GRAPH_RUNS.items():
+        want = record_bytes(os.path.join(td, f"big.{ref}.bam"))
+        counts = set()
+        if len(turns) == 1:
+            graph_run = runs[label]
+            counts.add(graph_run["launches"][kernel])
+            print_graph_turn(f"{label}-graphs", graph_run,
+                             f"phase {5 if devices else 3}'s run")
+        for turn, graphs in enumerate(turns):
+            name = f"{label}-{'graphs' if graphs else 'eager'}-{turn}"
+            path = os.path.join(td, f"big.{name}.bam")
+            got, run = run_main(big, path, name, dict(fields, graphs=graphs),
+                                td, devices=devices)
+            check_launches(name, got, (kernel,))
+            counts.add(got[kernel])
+            if record_bytes(path) != want:
+                raise AssertionError(f"{name}: records not byte-equal to "
+                                     f"phase 3's {ref} run")
+            print_graph_turn(name, run, f"{len(want)} records byte-equal to "
+                             f"phase 3's {ref} run")
+            os.remove(path)
+        if len(counts) != 1:
+            raise AssertionError(f"{label}: launch counts {sorted(counts)} "
+                                 f"differ between graph and eager runs")
+    for impl, (kernel, cls, names) in PROFILED.items():
+        out = os.path.join(td, f"big.{impl}-profiled.bam")
+        reset_launches()
+        prof = device_profile(lambda: run_call(
+            big, out, CallConfig(device="cuda", gather_impl=impl)))
+        got = read_launches()
+        warm = programs.warmup_launches.get(kernel_wrappers()[kernel], 0)
+        check_launches(f"{impl}-profiled", got, (kernel,))
+        same_records(out, os.path.join(td, f"big.{impl}.bam"),
+                     f"{impl}-profiled-vs-{impl}")
+        print(f"[graphs {impl}-profiled] default async run with graphs "
+              f"under torch.profiler: wall {prof['wall_s']:.3f} s, device "
+              f"busy {prof['busy_s']:.3f} s, idle share "
+              f"{prof['idle_share']:.4f}; device ms by class " + ", ".join(
+                  f"{c} {ms:.1f}" for c, ms in sorted(
+                      prof["ms_by_class"].items(), key=lambda kv: -kv[1])))
+        if prof["ms_by_class"].get(cls, 0.0) <= 0:
+            raise AssertionError(f"the profiler saw no {cls} in the {impl} "
+                                 f"run's graphs")
+        # the launch count is a measurement: the profiler's kernels of
+        # each name are the replays' launches plus the warm-ups'
+        for part in names:
+            seen = sum(n for k, n in prof["n_by_kernel"].items()
+                       if part in k)
+            print(f"[graphs {impl}-profiled] {part}: {seen} device kernels "
+                  f"= {got[kernel]} launches + {warm} warm-ups")
+            if seen != got[kernel] + warm:
+                raise AssertionError(
+                    f"{impl}-profiled: the profiler saw {seen} {part} "
+                    f"kernels, the counts say {got[kernel]} launches + "
+                    f"{warm} warm-ups: " + str({k: n for k, n in prof[
+                        "n_by_kernel"].items() if "kernel" in k}))
+    print(f"[phase 8] graphs against eager in "
+          f"{time.perf_counter() - t_phase:.3f} s wall")
+
+
 def phase_surface(big, td, runs):
     """Phase 7 (see the module notes)."""
     t_phase = time.perf_counter()
@@ -1620,6 +1755,7 @@ def phase_surface(big, td, runs):
 
 
 def main() -> int:
+    t_smoke = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         return fail("no CUDA device: torch.cuda.is_available() is False")
@@ -1746,11 +1882,16 @@ def main() -> int:
         # -- phase 7: trace, cache, reference per-site call ----------------
         phase_surface(big, td, runs)
 
+        # -- phase 8: graphs against eager ---------------------------------
+        phase_graphs(big, td, runs)
+
     for row in rows:
         if row["name"] in launches:
             row["launches"], row["path"] = launches[row["name"]]
     if any(row["launches"] <= 0 for row in rows):
         return fail(f"a kernel was launched no time: {rows}")
+    print(f"[smoke] phases 1-8 in {time.perf_counter() - t_smoke:.3f} s "
+          f"wall")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

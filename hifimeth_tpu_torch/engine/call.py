@@ -30,7 +30,11 @@ The pipeline is the JAX engine's (hifimeth_tpu/engine/call.py):
     (`segment_align`) and reads past it carry over to the next flush;
  3. dispatch worker: featurize the flush's segments, plan the groups and
     launch every batch on the engine's compute stream, queue the results'
-    copies to pinned host memory, record the flush's event;
+    copies to pinned host memory, record the flush's event.  On the
+    planned paths each batch runs a program (engine/programs.py), the JAX
+    engine's compiled per-batch program: one per (replica, context,
+    strand), built with the engine and, with `graphs` on the card,
+    replayed as a CUDA graph;
  4. resolve worker: wait for that event, scatter and unsort the probs;
  5. emit worker: MM/ML build and the ordered BAM write (`sink`).
 Each queue holds at most `queue_depth` flushes.  The first worker exception
@@ -84,6 +88,7 @@ from ..ops.gather import (BLOCK_LANES, GROUP, PLAN_EXTENT, check_plan,
 from ..parallel.dist import ShardSpec, shard_path, sharded_read_stream
 from ..parallel.mesh import local_devices, resolve_devices
 from ..utils.logging import bytes_to_datasize, format_with_commas, log, warn
+from .programs import BatchProgram, GraphPool, plan_views
 
 PROG = "hifimeth-tpu-torch"
 
@@ -138,6 +143,13 @@ class CallConfig:
     trace: bool = False                  # per-flush pipeline timeline on
                                          # stderr (async mode; the CLI sets
                                          # it from HIFIMETH_TRACE)
+    graphs: bool = True                  # planned paths on the card: each
+                                         # batch replays its program
+                                         # captured as a CUDA graph.
+                                         # False runs the program's body
+                                         # eagerly, every op launched (no
+                                         # CLI flag: for comparisons; the
+                                         # CPU always does)
 
     def resolve_model_dir(self) -> str:
         return self.model_dir or default_model_dir()
@@ -488,13 +500,80 @@ class CallEngine:
         # run on their own threads and overlap the rest
         self.timers = {"decode": 0.0, "sites": 0.0, "pack": 0.0,
                        "flush": 0.0, "dispatch": 0.0, "resolve": 0.0,
-                       "mmbuild": 0.0}
+                       "mmbuild": 0.0, "capture": 0.0}
         #: the per-flush pipeline timeline (cfg.trace): (flush number,
         #: stage, time) events, printed by log_timers
         self._trace_on = cfg.trace
         self._trace_events: list = []
         self._queued = 0
+        #: on the planned paths, each device's persistent feature table
+        #: (every flush featurizes into it) and its programs by (context,
+        #: reverse strand); both built here, before any pipeline thread
+        #: starts
+        self._tables = self._programs = None
+        if cfg.gather_impl in _PLANNED_GATHERS:
+            self._build_programs()
         self._reset_buffer()
+
+    def _build_programs(self):
+        """Allocate the persistent tables and build every device's
+        programs, one per (context, strand).  With cfg.graphs on the card
+        they are captured as CUDA graphs into one GraphPool per device
+        entry (two replicas on one card run on two streams at once; the
+        six graphs of a replica share its pool's memory, one batch's
+        intermediates), each geometry warmed up once per entry: contexts
+        whose models have the same layer shapes share it, strands do not
+        (the gather kernel has a variant per strand).  Seconds in the
+        `capture` timer."""
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        cuda = self.device.type == "cuda"
+        ngrp = cfg.site_batch // GROUP
+        with torch.inference_mode():
+            self._tables = [torch.zeros((8, cfg.buffer_bases),
+                                        dtype=torch.float32, device=d)
+                            for d in self.devices]
+            self._programs = []
+            for d, dev in enumerate(self.devices):
+                pool = GraphPool(dev) if cuda and cfg.graphs else None
+                warmed, progs = set(), {}
+                for ctx in cfg.contexts:
+                    shapes = tuple(tuple(p.shape) for p in
+                                   self.replicas[d].models[ctx].parameters())
+                    for rev in (False, True):
+                        progs[(ctx, rev)] = BatchProgram(
+                            self._batch_body(d, ctx, rev),
+                            ngrp * (GROUP + 1), cfg.site_batch, dev,
+                            pool=pool, warm=(shapes, rev) not in warmed)
+                        warmed.add((shapes, rev))
+                self._programs.append(progs)
+        if cuda:
+            # the tables' fills and the programs' warm-ups are done before
+            # the pipeline's streams use them
+            for d in dict.fromkeys(self.devices):
+                torch.cuda.synchronize(d)
+        self.timers["capture"] += time.perf_counter() - t0
+
+    def _batch_body(self, d: int, ctx: str, rev: bool):
+        """Device d's program body for one batch of `ctx` on one strand:
+        the plan's groups through the gather kernel and the CNN, or through
+        the fused kernel, over the device's persistent table, into `out`."""
+        table = self._tables[d]
+        ngrp = self.cfg.site_batch // GROUP
+        replica = self.replicas[d]
+        if self.cfg.gather_impl == "fused":
+            weights = replica.fused[ctx]
+
+            def body(plan, out):
+                call_sites_fused(weights, table, *plan_views(plan, ngrp), rev,
+                                 out=out)
+        else:
+            model, kmer = replica.models[ctx], self.kmer
+
+            def body(plan, out):
+                call_sites_group(model, table, *plan_views(plan, ngrp), rev,
+                                 kmer, out=out)
+        return body
 
     @staticmethod
     def _device_list(cfg: CallConfig, devices) -> list:
@@ -895,7 +974,11 @@ class CallEngine:
                             stream.wait_event(ev)
                             t.record_stream(stream)
                         segs.append(t)
-                    table = featurize_planes_t_seg(segs, cap)
+                    # the persistent table is rewritten on device d's
+                    # stream, after the previous flush's batches that read
+                    # it
+                    table = featurize_planes_t_seg(segs, cap,
+                                                   out=self._tables[d])
                 else:
                     table = featurize_planes_seg(
                         self._h2d(payload, hold, d), cap)
@@ -952,14 +1035,6 @@ class CallEngine:
         n_rows = self.cfg.buffer_bases
         ndev = len(self.devices)
         ngrp = self.cfg.site_batch // GROUP
-        if self.cfg.gather_impl == "fused":
-            def call(d, b, r, rev):
-                return call_sites_fused(self.replicas[d].fused[ctx],
-                                        tables[d], b, r, rev)
-        else:
-            def call(d, b, r, rev):
-                return call_sites_group(self.replicas[d].models[ctx],
-                                        tables[d], b, r, rev, self.kmer)
         results = []
         for sel, rev in streams:
             cs = c_s if sel is None else c_s[sel]
@@ -990,20 +1065,37 @@ class CallEngine:
             # blocks of ngrp
             b128 = b128.astype(np.int32).reshape(nb, ndev, ngrp)
             rels = rels.astype(np.int32).reshape(nb, ndev, ngrp, GROUP)
-            per_dev = []
-            for d in range(ndev):
-                with self._stream(d):
-                    bases_d = self._h2d(b128[:, d].reshape(-1), hold, d)
-                    rels_d = self._h2d(rels[:, d].reshape(-1, GROUP), hold, d)
-                    per_dev.append([
-                        call(d, bases_d[b * ngrp:(b + 1) * ngrp],
-                             rels_d[b * ngrp:(b + 1) * ngrp], rev)
-                        for b in range(nb)])
-            per_dev = self._to_primary(per_dev)
-            parts = [per_dev[d][b] for b in range(nb) for d in range(ndev)]
-            results.append((self._to_host(torch.cat(parts)), idx, sel,
-                            ng))
+            probs = self._launch_programs(ctx, rev, b128, rels, hold)
+            results.append((self._to_host(probs), idx, sel, ng))
         return n, results, order
+
+    def _launch_programs(self, ctx: str, rev: bool, b128: np.ndarray,
+                         rels: np.ndarray, hold: list) -> torch.Tensor:
+        """One strand's (nb, ndev, ngrp) plan through each device's program
+        of (ctx, rev): the device's plan rows in one copy, then per batch
+        its row into the program, a replay and the program's output into
+        the flush's result, all on the device's stream.  Returns the
+        (nb * ndev * site_batch,) u8 probs on the primary device, batch by
+        batch in device order."""
+        nb, ndev = b128.shape[:2]
+        sb = self.cfg.site_batch
+        # a batch's plan row: its rels, then its bases (programs.plan_views)
+        plan = np.concatenate([rels.reshape(nb, ndev, -1), b128], axis=2)
+        per_dev = []
+        for d in range(ndev):
+            with self._stream(d):
+                rows = self._h2d(plan[:, d], hold, d)
+                res = torch.empty(nb * sb, dtype=torch.uint8,
+                                  device=self.devices[d])
+                program = self._programs[d][(ctx, rev)]
+                for b in range(nb):
+                    program(rows[b], res[b * sb:(b + 1) * sb])
+                per_dev.append([res])
+        per_dev = self._to_primary(per_dev)
+        if ndev == 1:
+            return per_dev[0][0]
+        return torch.stack([p[0].view(nb, sb) for p in per_dev],
+                           1).reshape(-1)
 
     def _call_context_batched(self, ctx: str, tables: list, s: dict,
                               centers: np.ndarray, hold: list):
@@ -1235,6 +1327,20 @@ class CallEngine:
             t.join()
         self._threads = []
 
+    def release(self):
+        """On the card, once the engine's runs are done: drop its programs
+        (their graphs) and tables, then empty the allocator's cache.  A
+        dead engine's graph pool and the blocks cached on its streams are
+        reused by no later engine, so without this a process that runs
+        `call` again and again keeps a few GB more reserved each run
+        (scripts/probe_graph_memory.py)."""
+        if self.device.type != "cuda":
+            return
+        for d in dict.fromkeys(self.devices):
+            torch.cuda.synchronize(d)
+        self._programs = self._tables = None
+        torch.cuda.empty_cache()
+
     def _trace(self, stage: str, seq: int) -> None:
         """Stamp one stage of flush `seq` (cfg.trace; async mode only)."""
         if self._trace_on:
@@ -1328,6 +1434,7 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
         engine.close()
         writer.close()
         reader.close()
+    engine.release()
 
     s = engine.stats
     engine.log_timers()

@@ -54,18 +54,28 @@ def featurize_planes_t(planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def featurize_planes_t_seg(segments, cap: int) -> torch.Tensor:
+def featurize_planes_t_seg(segments, cap: int,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
     """Featurize the (5, w_i) plane pieces the engine shipped, which cover
     a prefix of the (5, cap) plane buffer in order, into an (8, cap) table
     whose tail past them is zero - what the packer's 255/0 fill featurizes
-    to - so the result equals featurize_planes_t over the whole buffer."""
+    to - so the result equals featurize_planes_t over the whole buffer.
+    With `out` (an (8, cap) float32 table on the planes' device, such as
+    the engine's persistent table that its captured programs read) the
+    table is written there and returned."""
     if not segments:
         raise ValueError("no plane segments to featurize")
     m = sum(s.shape[1] for s in segments)
     if m > cap:
         raise ValueError(f"segments of {m} lanes exceed capacity {cap}")
     planes = segments[0] if len(segments) == 1 else torch.cat(segments, 1)
-    out = torch.empty((8, cap), dtype=torch.float32, device=planes.device)
+    if out is None:
+        out = torch.empty((8, cap), dtype=torch.float32, device=planes.device)
+    elif (tuple(out.shape) != (8, cap) or out.dtype != torch.float32
+          or out.device != planes.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous (8, {cap}) float32 table "
+                         f"on {planes.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
     out[:, m:].zero_()
     _featurize_into(planes, out[:, :m])
     return out
@@ -263,10 +273,14 @@ def call_sites_grid(model: DNAModNet, feats: torch.Tensor,
 
 def call_sites_group(model: DNAModNet, table: torch.Tensor,
                      bases: torch.Tensor, rels: torch.Tensor, rev: bool,
-                     kmer: int = KMER_SIZE) -> torch.Tensor:
+                     kmer: int = KMER_SIZE,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """One batch of planned groups -> (ng*G,) u8 scaled probs in slot order.
     The windows come out of the gather in the model's compute dtype, as the
-    JAX package's call_sites_pallas asks group_windows_t for them.
+    JAX package's call_sites_pallas asks group_windows_t for them.  With
+    `out` ((ng*G,) u8) the probs are written there and `out` is returned,
+    so a captured program's body leaves no allocation behind
+    (engine/programs.py).
 
     No per-site read-bounds mask: the engine packs reads with a >= kmer//2
     zero-feature gap, so window lanes past a read's edge read exact zeros
@@ -274,7 +288,8 @@ def call_sites_group(model: DNAModNet, table: torch.Tensor,
     (eval_kmer_features.cpp:40)."""
     w = group_windows_t(table, bases, rels, rev=rev, kmer=kmer,
                         out_dtype=model.compute_dtype)
-    return logits_to_scaled_probs(model(w))
+    probs = logits_to_scaled_probs(model(w))
+    return probs if out is None else out.copy_(probs)
 
 
 #: reverse-strand kinetics channel order: (fi, fp, ri, rp) -> (ri, rp, fi, fp)

@@ -270,8 +270,12 @@ def launch_kernel(lib: ctypes.CDLL, weights: FusedWeights,
                   rels: torch.Tensor, rev: bool, out: torch.Tensor) -> None:
     """Launch `lib`'s kernels on the current stream into `out` (ng*G, 2);
     the arguments must already have passed fused_forward's checks.  The
-    device scratch between the two kernels (conv4's output per site) is
-    allocated here."""
+    device scratch between the kernels (conv2's and conv4's outputs per
+    site) is allocated here, from the graph's pool while a captured
+    program records the call (engine/programs.py).  Besides the launches,
+    hm_fused_forward makes only host-side calls (cudaGetDevice,
+    cudaDeviceGetAttribute, cudaFuncSetAttribute), which a stream capture
+    allows."""
     ng, g = rels.shape
     meta = weights.meta
     per_site = lib.hm_fused_scratch_floats(meta.ctypes.data, len(meta))
@@ -330,14 +334,17 @@ def fused_forward(weights: FusedWeights, table: torch.Tensor,
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it to show the
-#: fused path went through the kernel)
+#: fused path went through the kernel); a replay of a captured program adds
+#: the launches its body made (engine/programs.py), its capture none
 fused_forward.launches = 0
 
 
 def call_sites_fused(weights: FusedWeights, table: torch.Tensor,
-                     bases: torch.Tensor, rels: torch.Tensor,
-                     rev: bool) -> torch.Tensor:
+                     bases: torch.Tensor, rels: torch.Tensor, rev: bool,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """One batch of planned groups -> (ng*G,) u8 scaled probs in slot order
-    (the fused counterpart of features/windows.call_sites_group)."""
-    return logits_to_scaled_probs(fused_forward(weights, table, bases, rels,
-                                                rev))
+    (the fused counterpart of features/windows.call_sites_group, `out` as
+    there)."""
+    probs = logits_to_scaled_probs(fused_forward(weights, table, bases, rels,
+                                                 rev))
+    return probs if out is None else out.copy_(probs)

@@ -193,7 +193,8 @@ def group_windows_t(table: torch.Tensor, bases: torch.Tensor,
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it to show the
-#: main path went through the kernel)
+#: main path went through the kernel); a replay of a captured program adds
+#: the launches its body made (engine/programs.py), its capture none
 group_windows_t.launches = 0
 
 

@@ -7,27 +7,35 @@ sizes) through one per-site path (--gather-impl: "pallas", the gather
 kernel + cuDNN CNN; "fused", the fused kernel; "slice" or "folded", the
 indexing gathers + cuDNN CNN), through the asynchronous pipeline or, with
 --sync-emit, on the caller's thread, in --dtype f32 or bf16, with
---decode-workers threads (default -1, the engine's auto rule), --reps
-times plain to time it (default 1) and once under torch.profiler (device
+--decode-workers threads (default -1, the engine's auto rule), each batch
+of the planned paths replaying its captured CUDA graph (CallConfig.graphs,
+the default) or, with --eager, launching every op eagerly, --reps times
+plain to time it (default 1) and once under torch.profiler (device
 activity only, so the host pays no per-op tracing cost), and prints:
- - wall seconds, sites/s and the engine's timers of each plain run, and
-   the median sites/s over the runs;
+ - wall seconds, sites/s, the engine's timers (`capture`: the seconds the
+   engine took to warm up and capture its graphs, inside the wall) and the
+   peak device memory (allocated and reserved) of each plain run, and the
+   median sites/s over the runs;
  - device time by kernel class (the gather kernel, the fused kernel,
    convolutions, matrix products, PyTorch indexing (the slice/folded
    gathers), elementwise/other kernels, memory copies), summed over the
    profiled run, and the device's busy share of that run's wall time (the
-   union of its kernels' and copies' intervals on every stream).
+   union of its kernels' and copies' intervals on every stream).  CUPTI
+   reports the kernels a graph launches one by one, as it does eager
+   launches, so both kinds of run are read the same way.
 
 Usage (on a machine with a CUDA device):
     python3 scripts/profile_torch_call.py [--gather-impl pallas|fused|slice|folded]
-        [--sync-emit] [--dtype f32|bf16] [--decode-workers N] [--reps N]
-        [--out DIR]
+        [--sync-emit] [--dtype f32|bf16] [--decode-workers N] [--eager]
+        [--reps N] [--out DIR]
 To compare settings, run the script once per setting in one session, the
 settings in turns, so that drift on the host spreads over all of them.
 With --out, the JSON summary is also written to
-DIR/profile_summary.<gather-impl>[.sync][.bf16][.w<N>].json.
+DIR/profile_summary.<gather-impl>[.sync][.bf16][.w<N>][.eager].json.
+`device_profile` is also chip_smoke.py's reading of the idle share.
 """
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -58,6 +66,45 @@ def kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
+def device_profile(fn) -> dict:
+    """Run `fn()` under torch.profiler (device activity only) and
+    synchronise; returns its wall seconds, the device's busy seconds (the
+    union of its kernels' and copies' intervals on every stream), device
+    ms by kernel class and by kernel name, and the count of each kernel
+    name's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class: dict = {}
+    by_kernel: dict = {}
+    n_by_kernel: dict = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        spans.append((ev.time_range.start, ev.time_range.end))
+        c = kernel_class(ev.name)
+        by_class[c] = by_class.get(c, 0.0) + us / 1e3
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + us / 1e3
+        n_by_kernel[ev.name] = n_by_kernel.get(ev.name, 0) + 1
+    # busy = the union of the intervals: a copy on the copy stream that
+    # overlaps a kernel counts once
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"wall_s": wall, "busy_s": busy_us / 1e6,
+            "idle_share": 1 - busy_us / 1e6 / wall,
+            "ms_by_class": by_class, "ms_by_kernel": by_kernel,
+            "n_by_kernel": n_by_kernel}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gather-impl", default="pallas",
@@ -65,6 +112,7 @@ def main() -> int:
     ap.add_argument("--sync-emit", action="store_true")
     ap.add_argument("--dtype", default="f32", choices=("f32", "bf16"))
     ap.add_argument("--decode-workers", type=int, default=-1)
+    ap.add_argument("--eager", action="store_true")
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -73,13 +121,12 @@ def main() -> int:
     label = (args.gather_impl + (".sync" if args.sync_emit else "")
              + (".bf16" if args.dtype == "bf16" else "")
              + (f".w{args.decode_workers}" if args.decode_workers >= 0
-                else ""))
+                else "") + (".eager" if args.eager else ""))
 
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_call: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import make_bam
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
@@ -95,7 +142,7 @@ def main() -> int:
                          compute_dtype={"f32": "float32",
                                         "bf16": "bfloat16"}[args.dtype],
                          decode_workers=args.decode_workers,
-                         stats_json=stats_json)
+                         graphs=not args.eager, stats_json=stats_json)
         small, big = os.path.join(td, "small.bam"), os.path.join(td, "big.bam")
         make_bam(small, 4, 4000, seed=1)
         make_bam(big, 200, 15000, seed=0)
@@ -103,6 +150,9 @@ def main() -> int:
         run_call(small, out, cfg)                          # warm-up
         runs = []
         for rep in range(args.reps):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             stats = run_call(big, out, cfg)
             torch.cuda.synchronize()
@@ -110,57 +160,43 @@ def main() -> int:
             sites = sum(stats[c] for c in ("CpG", "CHG", "CHH"))
             with open(stats_json) as f:
                 timers = json.load(f)["timers"]
+            peak = (torch.cuda.max_memory_allocated() / 2**20,
+                    torch.cuda.max_memory_reserved() / 2**20)
             runs.append({"wall_s": wall, "sites_per_s": sites / wall,
-                         "timers": timers})
+                         "timers": timers, "peak_allocated_mib": peak[0],
+                         "peak_reserved_mib": peak[1]})
             print(f"[plain run {rep}, {label}] {sites} sites in {wall:.3f} s"
-                  f" = {sites / wall:.1f} sites/s; engine timers (s): "
+                  f" = {sites / wall:.1f} sites/s; peak device memory "
+                  f"{peak[0]:.1f} MiB allocated, {peak[1]:.1f} MiB reserved;"
+                  f" engine timers (s): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in timers.items()))
         median = statistics.median(r["sites_per_s"] for r in runs)
         print(f"[plain runs, {label}] median of {args.reps}: {median:.1f} "
               f"sites/s")
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_call(big, out, cfg)
-            torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
+        prof = device_profile(lambda: run_call(big, out, cfg))
 
-    by_class: dict = {}
-    by_kernel: dict = {}
-    spans = []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        spans.append((ev.time_range.start, ev.time_range.end))
-        c = kernel_class(ev.name)
-        by_class[c] = by_class.get(c, 0.0) + us
-        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + us
-    # busy = the union of the intervals: a copy on the copy stream that
-    # overlaps a kernel counts once
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    sum_us = sum(by_class.values())
-    print(f"[profiled run] wall {pwall:.3f} s, device busy "
-          f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / pwall:.1f}% "
-          f"of wall (idle {100 - 100 * busy_us / 1e6 / pwall:.1f}%)")
-    for c, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {c:<20} {us / 1e3:10.3f} ms  {100 * us / sum_us:5.1f}%")
+    print(f"[profiled run] wall {prof['wall_s']:.3f} s, device busy "
+          f"{prof['busy_s']:.3f} s = {100 - 100 * prof['idle_share']:.1f}% "
+          f"of wall (idle {100 * prof['idle_share']:.1f}%)")
+    by_class = prof["ms_by_class"]
+    sum_ms = sum(by_class.values())
+    for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {c:<20} {ms:10.3f} ms  {100 * ms / sum_ms:5.1f}%")
     print("  top kernels:")
-    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {us / 1e3:10.3f} ms  {name[:110]}")
+    for name, ms in sorted(prof["ms_by_kernel"].items(),
+                           key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms:10.3f} ms  {name[:110]}")
     summary = {"card": card, "gather_impl": args.gather_impl,
                "sync_emit": args.sync_emit, "dtype": args.dtype,
                "decode_workers": args.decode_workers,
+               "graphs": not args.eager,
                "sites": sites, "plain_runs": runs,
                "median_sites_per_s": median,
-               "profiled_wall_s": pwall,
-               "device_busy_s": busy_us / 1e6,
-               "device_idle_share": 1 - busy_us / 1e6 / pwall,
-               "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()}}
+               "profiled_wall_s": prof["wall_s"],
+               "device_busy_s": prof["busy_s"],
+               "device_idle_share": prof["idle_share"],
+               "device_ms_by_class": by_class}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, f"profile_summary.{label}.json"),
