@@ -35,14 +35,19 @@ Phases (any failure exits non-zero before the final line is printed):
     the async run); pallas in bf16 (group_windows_t writing bf16
     windows); pallas on a forced schedule (256 Ki buffer, 48 Ki flushes,
     3 decode workers), which must roll buffers over, cut flushes at
-    segments and carry reads; and the window-fetch microbenchmark
+    segments and carry reads; pallas with CallConfig.conv_impl "im2col"
+    (every conv one cuBLAS float32 product over unfolded columns) and
+    slice with "auto" (conv1 so); and the window-fetch microbenchmark
     (scripts/microbench_torch_gather.py, every variant, 2 batches), which
     launches group_windows, window_slices and group_windows_t;
  4. outputs held to the parity contract (MM/MN byte-equal, ML within +-1,
     at most 5% of ML bytes off): fused against pallas, slice against
     pallas and folded against slice on the card over the big input; async
     against sync for pallas and fused, and the forced schedule against the
-    default, byte-equal; bf16 against f32 pallas with MM/MN equal and ML
+    default, byte-equal; pallas im2col and slice auto against their direct
+    runs (contract, ML bytes off and peak device memory printed), and an
+    im2col forward with TF32 switched on must raise; bf16 against f32
+    pallas with MM/MN equal and ML
     inside bench.py's self-check gate (max 24, mean 2.0) and a mean of at
     least 0.3 (a run that skips the bf16 rounding reads near 0) over the
     big input, and on the input the JAX package's bf16 band was taken on
@@ -103,14 +108,18 @@ Phases (any failure exits non-zero before the final line is printed):
     wall seconds;
  8. graphs on the card (CallConfig.graphs; phases 1-7 run with it on, the
     default): the big input through pallas and fused four times each in
-    turns with graphs off and on (eager, graph, graph, eager), and through
-    pallas-bf16 and the pallas split over ["cuda:0", "cuda:0"] once with
-    graphs off (their graph turns are their runs of phases 3 and 5), each
-    run with the counts and the peak device memory set to 0 just before it
-    and read just after: every run byte-equal to phase 3's run of its path
-    (the split to phase 3's pallas), launching its kernel as often as the
-    graph runs of its path (126 on the smoke input; the split more, as its
-    plans pad to two devices) and no other; per run its sites/s, the
+    turns with graphs off and on (eager, graph, graph, eager), through
+    slice and folded twice (eager, graph; their programs index per site),
+    and through pallas-bf16, the pallas split and the slice split over
+    ["cuda:0", "cuda:0"] (the grid programs, a share of each batch per
+    replica) once with graphs off (their graph turns are their runs of
+    phases 3 and 5), each run with the counts and the peak device memory
+    set to 0 just before it and read just after: every run byte-equal to
+    phase 3's run of its path (the pallas split to phase 3's pallas, the
+    slice split to phase 5's), launching its kernel as often as the graph
+    runs of its path (126 on the smoke input; the split more, as its plans
+    pad to two devices; slice and folded none) and no other; per run its
+    sites/s, the
     engine's capture seconds (inside the run's wall) and its peak device
     memory, allocated and reserved; then the default async pallas and
     fused runs under torch.profiler (scripts/profile_torch_call.py's
@@ -168,6 +177,9 @@ MAIN_RUNS = {
     "pallas-forced": (dict(gather_impl="pallas", buffer_bases=1 << 18,
                            flush_bases=48 << 10, decode_workers=3),
                       ("group_windows_t",)),
+    "pallas-im2col": (dict(gather_impl="pallas", conv_impl="im2col"),
+                      ("group_windows_t",)),
+    "slice-auto": (dict(gather_impl="slice", conv_impl="auto"), ()),
 }
 #: reads per round-robin block of phase 5's shard runs: 200 reads make 4
 #: blocks, 2 per shard
@@ -951,6 +963,35 @@ def same_golden_beds(prefix, label):
     print(f"[{label}] CpG/CHG/CHH BEDs byte-equal to the golden corpus")
 
 
+def check_conv_impl(runs):
+    """Phase 4's conv_impl lines: the im2col and auto runs' sites/s and
+    peak device memory beside their direct runs', and an im2col forward on
+    the card with TF32 switched on, which must raise (the route runs its
+    products in full float32 only)."""
+    import torch
+    from hifimeth_tpu_torch.model.cnn import load_model_npz
+    for label, ref in (("pallas-im2col", "pallas"), ("slice-auto", "slice")):
+        a, b = runs[label], runs[ref]
+        print(f"[conv_impl {label}] sites/s {a['sites_per_s']:.1f} against "
+              f"{b['sites_per_s']:.1f} direct; peak device memory "
+              f"{a['peak_mib'][0]:.1f} MiB allocated, {a['peak_mib'][1]:.1f} "
+              f"MiB reserved against {b['peak_mib'][0]:.1f} and "
+              f"{b['peak_mib'][1]:.1f} direct")
+    model = load_model_npz(os.path.join(ROOT, "models", "CpG.npz"), "cuda",
+                           conv_impl="im2col")
+    x = torch.zeros((2, 8, 401), device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            model(x)
+    except RuntimeError as e:
+        print(f"[conv_impl] im2col with TF32 on raises: {e}")
+    else:
+        raise AssertionError("an im2col forward ran with TF32 on")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def phase_scale_out(big, td, runs):
     """Phase 5 (see the module notes); `runs` holds phase 3's stats."""
     import socket
@@ -993,9 +1034,9 @@ def phase_scale_out(big, td, runs):
         if run["config"]["devices"] != ["cuda:0", "cuda:0"]:
             raise AssertionError(f"{label} ran over "
                                  f"{run['config']['devices']}")
+        runs[label] = run
         if impl == "pallas":
             same_records(out(label), pallas, f"{label}-vs-pallas")
-            runs[label] = run
         else:
             compare(out(label), out("slice"), f"{label}-vs-slice")
         print(f"[scale-out] {label} sites/s {run['sites_per_s']:.1f}")
@@ -1643,10 +1684,10 @@ def phase_reference_call(dev="cuda"):
 # -- phase 8: graphs on the card -----------------------------------------------
 
 #: phase 8's paths: label -> (CallConfig fields, the device list, the kernel
-#: the run must launch, phase 3's run its records must equal, the turns'
-#: graphs settings).  bf16 and the split run one eager turn: their graph
-#: turn is their run of phase 3 (bf16) or phase 5 (the split), graphs on
-#: by default there
+#: the run must launch (None: no hand kernel), the run of phase 3 or 5 its
+#: records must equal, the turns' graphs settings).  bf16 and the splits
+#: run one eager turn: their graph turn is their run of phase 3 (bf16) or
+#: phase 5 (the splits), graphs on by default there
 GRAPH_RUNS = {
     "pallas": (dict(gather_impl="pallas"), None, "group_windows_t", "pallas",
                (False, True, True, False)),
@@ -1657,6 +1698,11 @@ GRAPH_RUNS = {
     "pallas-split": (dict(gather_impl="pallas", data_parallel=True),
                      ["cuda:0", "cuda:0"], "group_windows_t", "pallas",
                      (False,)),
+    "slice": (dict(gather_impl="slice"), None, None, "slice", (False, True)),
+    "folded": (dict(gather_impl="folded"), None, None, "folded",
+               (False, True)),
+    "slice-split": (dict(gather_impl="slice", data_parallel=True),
+                    ["cuda:0", "cuda:0"], None, "slice-split", (False,)),
 }
 #: each profiled path's wrapper, its device_profile class and the names of
 #: the device kernels one launch of the wrapper runs (each once)
@@ -1686,10 +1732,12 @@ def phase_graphs(big, td, runs):
     t_phase = time.perf_counter()
     for label, (fields, devices, kernel, ref, turns) in GRAPH_RUNS.items():
         want = record_bytes(os.path.join(td, f"big.{ref}.bam"))
+        phase = 5 if ref.endswith("-split") else 3
+        wanted = () if kernel is None else (kernel,)
         counts = set()
         if len(turns) == 1:
             graph_run = runs[label]
-            counts.add(graph_run["launches"][kernel])
+            counts.add(graph_run["launches"][kernel] if kernel else 0)
             print_graph_turn(f"{label}-graphs", graph_run,
                              f"phase {5 if devices else 3}'s run")
         for turn, graphs in enumerate(turns):
@@ -1697,13 +1745,13 @@ def phase_graphs(big, td, runs):
             path = os.path.join(td, f"big.{name}.bam")
             got, run = run_main(big, path, name, dict(fields, graphs=graphs),
                                 td, devices=devices)
-            check_launches(name, got, (kernel,))
-            counts.add(got[kernel])
+            check_launches(name, got, wanted)
+            counts.add(got[kernel] if kernel else 0)
             if record_bytes(path) != want:
                 raise AssertionError(f"{name}: records not byte-equal to "
-                                     f"phase 3's {ref} run")
+                                     f"phase {phase}'s {ref} run")
             print_graph_turn(name, run, f"{len(want)} records byte-equal to "
-                             f"phase 3's {ref} run")
+                             f"phase {phase}'s {ref} run")
             os.remove(path)
         if len(counts) != 1:
             raise AssertionError(f"{label}: launch counts {sorted(counts)} "
@@ -1852,9 +1900,12 @@ def main() -> int:
                            ("pallas", "pallas-sync", "equal"),
                            ("fused", "fused-sync", "equal"),
                            ("pallas-forced", "pallas", "equal"),
+                           ("pallas-im2col", "pallas", "contract"),
+                           ("slice-auto", "slice", "contract"),
                            ("pallas-bf16", "pallas", "bf16-gate")):
             compare(os.path.join(td, f"big.{a}.bam"),
                     os.path.join(td, f"big.{b}.bam"), f"{a}-vs-{b}", mode)
+        check_conv_impl(runs)
         # bf16 against f32 on the input of the JAX package's band
         check = os.path.join(td, "selfcheck.bam")
         make_bam(check, 20, 5000, seed=7, composition=UNIFORM)

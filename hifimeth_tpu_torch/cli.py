@@ -12,7 +12,7 @@ import os
 import sys
 
 from . import __version__
-from .utils.logging import log, program_banner, program_info, warn
+from .utils.logging import log, program_banner, program_info
 
 PROG = "hifimeth-tpu-torch"
 
@@ -76,8 +76,9 @@ OPTIONS:
                        (folded) + CNN (default auto)
   --data-parallel      split each batch over every local card (pallas,
                        slice, folded; one card runs the single-device path)
-  --feat-channels {{8,32,128}}  taken for the JAX CLI's command lines and
-                       ignored: every path keeps the 8-channel table
+  --feat-channels {{8,32,128}}  taken for the JAX CLI's command lines
+                       (CallConfig.feat_channels); the engine warns when it
+                       is not 8 and keeps the 8-channel table on every path
   --shard I/N          call only the blocks of 10,000 reads I, I+N, ... and
                        write MOD-BAM.shardIIII (merge with merge-shards);
                        under torchrun (WORLD_SIZE set) the rank and world
@@ -152,11 +153,9 @@ def _parse_call(argv):
                 raise SystemExit(f"Illegal argument to option "
                                  f"'--feat-channels': {argv[i + 1]} "
                                  f"(expected 8|32|128)")
-            if argv[i + 1] != "8":
-                # the JAX engine pads its table to a TPU lane width; wider
-                # rows only slow the H100's gathers and never change a tag
-                warn("--feat-channels is ignored: every gather path keeps "
-                     "the 8-channel table")
+            # CallConfig.feat_channels: the engine warns when it is not 8
+            # and runs the 8-channel table
+            kw["feat_channels"] = int(argv[i + 1])
         elif a == "--shard":
             shard = _parse_shard(argv[i + 1])
         elif a == "--gather-impl":

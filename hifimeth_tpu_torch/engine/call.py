@@ -30,10 +30,11 @@ The pipeline is the JAX engine's (hifimeth_tpu/engine/call.py):
     (`segment_align`) and reads past it carry over to the next flush;
  3. dispatch worker: featurize the flush's segments, plan the groups and
     launch every batch on the engine's compute stream, queue the results'
-    copies to pinned host memory, record the flush's event.  On the
-    planned paths each batch runs a program (engine/programs.py), the JAX
-    engine's compiled per-batch program: one per (replica, context,
-    strand), built with the engine and, with `graphs` on the card,
+    copies to pinned host memory, record the flush's event.  Each batch
+    runs a program (engine/programs.py), the JAX engine's compiled
+    per-batch program: one per (replica, context, strand) on the planned
+    paths, one per (replica, context) on slice and folded (strand is data
+    there), built with the engine and, with `graphs` on the card,
     replayed as a CUDA graph;
  4. resolve worker: wait for that event, scatter and unsort the probs;
  5. emit worker: MM/ML build and the ordered BAM write (`sink`).
@@ -74,13 +75,13 @@ from ..constants import CONTEXTS, FWD, KMER_SIZE
 from ..device import resolve_device
 from ..features import sites as sitefind
 from ..features.read_decode import decode_read
-from ..features.windows import (call_sites_batched, call_sites_grid,
-                                call_sites_group, featurize_planes_seg,
-                                featurize_planes_t_seg, fold_table)
+from ..features.windows import (call_sites_group, call_sites_step,
+                                featurize_planes_seg, featurize_planes_t_seg,
+                                fold_table)
 from ..io import native
 from ..io.bam import BamReader, BamRecord, BamWriter
 from ..io.mmtags import build_mod_tags
-from ..model.cnn import exact_float32, load_model_npz
+from ..model.cnn import CONV_IMPLS, exact_float32, load_model_npz
 from ..ops.fused import KMER as FUSED_KMER
 from ..ops.fused import call_sites_fused, prepare_fused_params
 from ..ops.gather import (BLOCK_LANES, GROUP, PLAN_EXTENT, check_plan,
@@ -88,7 +89,7 @@ from ..ops.gather import (BLOCK_LANES, GROUP, PLAN_EXTENT, check_plan,
 from ..parallel.dist import ShardSpec, shard_path, sharded_read_stream
 from ..parallel.mesh import local_devices, resolve_devices
 from ..utils.logging import bytes_to_datasize, format_with_commas, log, warn
-from .programs import BatchProgram, GraphPool, plan_views
+from .programs import BatchProgram, GraphPool, plan_views, site_views
 
 PROG = "hifimeth-tpu-torch"
 
@@ -128,6 +129,15 @@ class CallConfig:
                                          # gathers + CNN
     compute_dtype: str = "float32"       # or "bfloat16": convs and FCs in
                                          # bf16 (ignored by "fused")
+    conv_impl: str = "direct"            # direct | im2col | auto: each conv
+                                         # as conv1d, as one matrix product
+                                         # over unfolded columns, or im2col
+                                         # where Cin * K <= 256 (conv1);
+                                         # no CLI flag, ignored by "fused"
+    feat_channels: int = 8               # the JAX engine's table width
+                                         # (8|32|128); the port warns when
+                                         # it is not 8 and runs 8 (CLI
+                                         # --feat-channels)
     decode_workers: int = -1             # decode + site-scan threads ahead of
                                          # the packer (-1 auto: cores-1,
                                          # at least 1, at most 4; 0 inline)
@@ -143,9 +153,9 @@ class CallConfig:
     trace: bool = False                  # per-flush pipeline timeline on
                                          # stderr (async mode; the CLI sets
                                          # it from HIFIMETH_TRACE)
-    graphs: bool = True                  # planned paths on the card: each
-                                         # batch replays its program
-                                         # captured as a CUDA graph.
+    graphs: bool = True                  # on the card each batch replays
+                                         # its program captured as a CUDA
+                                         # graph (every path).
                                          # False runs the program's body
                                          # eagerly, every op launched (no
                                          # CLI flag: for comparisons; the
@@ -351,20 +361,24 @@ class ModelSet:
 
     @classmethod
     def cached(cls, model_dir: str, contexts, device, fused: bool = False,
-               compute_dtype=torch.float32) -> "ModelSet":
+               compute_dtype=torch.float32, conv_impl: str = "direct",
+               feat_channels: int = 8) -> "ModelSet":
         """The process-level cache of device-resident weights (the JAX
         engine's ModelSet.cached): engines built from one model directory
         on one device share one read-only set.
 
         The key holds the model directory's real path, the contexts, the
-        resolved device, `fused`, the compute dtype and each model file's
-        (st_mtime_ns, st_size), so a rewritten file reloads even when its
-        mtime was put back.  Inserting a set evicts the sets of the same
-        directory and settings with other file stamps.  One lock covers
-        lookup, load and insert, so concurrent callers get one object."""
+        resolved device, `fused`, the compute dtype, the convolution route
+        and each model file's (st_mtime_ns, st_size), so a rewritten file
+        reloads even when its mtime was put back.  Inserting a set evicts
+        the sets of the same directory and settings with other file
+        stamps.  One lock covers lookup, load and insert, so concurrent
+        callers get one object.  `feat_channels` is taken for the JAX
+        signature and ignored: every set holds the 8-channel models."""
+        del feat_channels
         device = resolve_device(device)
         setting = (os.path.realpath(model_dir), tuple(contexts), str(device),
-                   bool(fused), str(compute_dtype))
+                   bool(fused), str(compute_dtype), conv_impl)
         stamps = []
         for name in [f"{c}.npz" for c in contexts] + ["kmer.txt"]:
             try:
@@ -376,7 +390,8 @@ class ModelSet:
         with cls._cache_lock:
             ms = cls._cache.get(key)
             if ms is None:
-                ms = cls(model_dir, contexts, device, fused, compute_dtype)
+                ms = cls(model_dir, contexts, device, fused, compute_dtype,
+                         conv_impl)
                 for k in [k for k in cls._cache
                           if k[:len(setting)] == setting]:
                     del cls._cache[k]
@@ -384,7 +399,8 @@ class ModelSet:
             return ms
 
     def __init__(self, model_dir: str, contexts, device: torch.device,
-                 fused: bool = False, compute_dtype=torch.float32):
+                 fused: bool = False, compute_dtype=torch.float32,
+                 conv_impl: str = "direct"):
         self.models = {}
         self.fused = {}
         self.kmer = KMER_SIZE
@@ -401,7 +417,7 @@ class ModelSet:
             if not os.path.exists(path):
                 raise FileNotFoundError(f"model file {path} not found")
             self.models[ctx] = load_model_npz(
-                path, device, compute_dtype).requires_grad_(False)
+                path, device, compute_dtype, conv_impl).requires_grad_(False)
             if fused:
                 self.fused[ctx] = prepare_fused_params(self.models[ctx],
                                                        device, self.kmer)
@@ -433,6 +449,15 @@ class CallEngine:
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; "
                              f"choose float32 or bfloat16")
+        if cfg.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {cfg.conv_impl!r}; choose "
+                             f"{', '.join(CONV_IMPLS)}")
+        if cfg.feat_channels != 8:
+            # the JAX engine pads its table to a TPU lane width; wider rows
+            # only slow the H100's gathers and never change a tag
+            warn("--feat-channels is ignored: every gather path keeps the "
+                 "8-channel table")
+            cfg = dataclasses.replace(cfg, feat_channels=8)
         if not isinstance(cfg.queue_depth, int) or cfg.queue_depth < 1:
             raise ValueError(f"queue_depth must be an integer >= 1, got "
                              f"{cfg.queue_depth!r}")
@@ -477,7 +502,10 @@ class CallEngine:
         self.replicas = [
             ModelSet.cached(cfg.resolve_model_dir(), cfg.contexts, d,
                             fused=cfg.gather_impl == "fused",
-                            compute_dtype=self.compute_dtype)
+                            compute_dtype=self.compute_dtype,
+                            # the fused kernel runs no DNAModNet
+                            conv_impl=("direct" if cfg.gather_impl == "fused"
+                                       else cfg.conv_impl))
             for d in self.devices]
         self.models = self.replicas[0]
         self.kmer = self.models.kmer
@@ -506,40 +534,55 @@ class CallEngine:
         self._trace_on = cfg.trace
         self._trace_events: list = []
         self._queued = 0
-        #: on the planned paths, each device's persistent feature table
-        #: (every flush featurizes into it) and its programs by (context,
-        #: reverse strand); both built here, before any pipeline thread
-        #: starts
+        #: each device's persistent feature table (every flush featurizes
+        #: into it: (8, cap) on the planned paths, (cap, 8) on slice and
+        #: folded) and its programs, by (context, reverse strand) on the
+        #: planned paths and by context on slice and folded; both built
+        #: here, before any pipeline thread starts
         self._tables = self._programs = None
-        if cfg.gather_impl in _PLANNED_GATHERS:
-            self._build_programs()
+        #: slice/folded: each device's share of a batch's sites, the
+        #: bounds [lo, hi) of its columns (np.linspace, as the JAX mesh
+        #: splits the batch axis)
+        self._share_bounds = np.linspace(0, cfg.site_batch,
+                                         len(self.devices) + 1).astype(int)
+        self._build_programs()
         self._reset_buffer()
 
     def _build_programs(self):
         """Allocate the persistent tables and build every device's
-        programs, one per (context, strand).  With cfg.graphs on the card
-        they are captured as CUDA graphs into one GraphPool per device
-        entry (two replicas on one card run on two streams at once; the
-        six graphs of a replica share its pool's memory, one batch's
-        intermediates), each geometry warmed up once per entry: contexts
-        whose models have the same layer shapes share it, strands do not
+        programs: on the planned paths one per (context, strand), on slice
+        and folded one per context, sized to the device's share of a batch
+        (all of it on one device).  With cfg.graphs on the card they are
+        captured as CUDA graphs into one GraphPool per device entry (two
+        replicas on one card run on two streams at once; the graphs of a
+        replica share its pool's memory, one batch's intermediates), each
+        geometry warmed up once per entry: contexts whose models have the
+        same layer shapes share it; on the planned paths strands do not
         (the gather kernel has a variant per strand).  Seconds in the
         `capture` timer."""
         t0 = time.perf_counter()
         cfg = self.cfg
         cuda = self.device.type == "cuda"
+        planned = cfg.gather_impl in _PLANNED_GATHERS
         ngrp = cfg.site_batch // GROUP
+        shape = (8, cfg.buffer_bases) if planned else (cfg.buffer_bases, 8)
         with torch.inference_mode():
-            self._tables = [torch.zeros((8, cfg.buffer_bases),
-                                        dtype=torch.float32, device=d)
+            self._tables = [torch.zeros(shape, dtype=torch.float32, device=d)
                             for d in self.devices]
             self._programs = []
             for d, dev in enumerate(self.devices):
                 pool = GraphPool(dev) if cuda and cfg.graphs else None
                 warmed, progs = set(), {}
+                share = int(self._share_bounds[d + 1] - self._share_bounds[d])
                 for ctx in cfg.contexts:
                     shapes = tuple(tuple(p.shape) for p in
                                    self.replicas[d].models[ctx].parameters())
+                    if not planned:
+                        progs[ctx] = BatchProgram(
+                            self._site_body(d, ctx, share), 4 * share, share,
+                            dev, pool=pool, warm=shapes not in warmed)
+                        warmed.add(shapes)
+                        continue
                     for rev in (False, True):
                         progs[(ctx, rev)] = BatchProgram(
                             self._batch_body(d, ctx, rev),
@@ -553,6 +596,24 @@ class CallEngine:
             for d in dict.fromkeys(self.devices):
                 torch.cuda.synchronize(d)
         self.timers["capture"] += time.perf_counter() - t0
+
+    def _site_body(self, d: int, ctx: str, share: int):
+        """Device d's slice/folded program body for one batch of `ctx`:
+        its `share` sites (centers, strands, read bounds, packed in the
+        plan) through the indexing gather over the device's persistent
+        table (folded: its fold view; over a device list the slice gather
+        over the table, as the JAX engine's call_sites_grid) and the CNN,
+        into `out` (one step of call_sites_batched)."""
+        table = self._tables[d]
+        impl = self.cfg.gather_impl if len(self.devices) == 1 else "slice"
+        if impl == "folded":
+            table = fold_table(table)
+        model, kmer = self.replicas[d].models[ctx], self.kmer
+
+        def body(plan, out):
+            call_sites_step(model, table, *site_views(plan, share), kmer,
+                            impl, out=out)
+        return body
 
     def _batch_body(self, d: int, ctx: str, rev: bool):
         """Device d's program body for one batch of `ctx` on one strand:
@@ -962,7 +1023,9 @@ class CallEngine:
         kind, payload, sites = work
         cap = self.cfg.buffer_bases
         hold: list = []
-        tables = []
+        # every flush rewrites each device's persistent table, which its
+        # programs read, on the device's stream after the previous flush's
+        # batches that read it
         for d in range(len(self.devices)):
             with self._stream(d):
                 if kind == "segments":
@@ -974,21 +1037,11 @@ class CallEngine:
                             stream.wait_event(ev)
                             t.record_stream(stream)
                         segs.append(t)
-                    # the persistent table is rewritten on device d's
-                    # stream, after the previous flush's batches that read
-                    # it
-                    table = featurize_planes_t_seg(segs, cap,
-                                                   out=self._tables[d])
+                    featurize_planes_t_seg(segs, cap, out=self._tables[d])
                 else:
-                    table = featurize_planes_seg(
-                        self._h2d(payload, hold, d), cap)
-                    # data-parallel folded runs the slice gather over the
-                    # unfolded table, as the JAX engine's call_sites_grid
-                    if (self.cfg.gather_impl == "folded"
-                            and len(self.devices) == 1):
-                        table = fold_table(table)
-            tables.append(table)
-        per_ctx = {ctx: self._call_context(ctx, tables, sites[ctx], hold)
+                    featurize_planes_seg(self._h2d(payload, hold, d), cap,
+                                         out=self._tables[d])
+        per_ctx = {ctx: self._call_context(ctx, sites[ctx], hold)
                    for ctx in self.cfg.contexts}
         done = None
         if self.device.type == "cuda":
@@ -999,10 +1052,10 @@ class CallEngine:
         self.timers["dispatch"] += time.perf_counter() - t0
         return per_ctx, done
 
-    def _call_context(self, ctx: str, tables: list, s: dict, hold: list):
+    def _call_context(self, ctx: str, s: dict, hold: list):
         """Plan groups of GROUP position-sorted sites whose windows fit one
-        block and call them; returns (n_sites, streams, order).  tables[d]
-        is device d's feature table.
+        block and call them over the devices' persistent tables; returns
+        (n_sites, streams, order).
 
         Reverse-strand sites run as a separate stream through the kernels'
         reverse mode, so no per-site strand vector reaches the device.  The
@@ -1018,7 +1071,7 @@ class CallEngine:
         if n == 0:
             return n, None, None
         if self.cfg.gather_impl not in _PLANNED_GATHERS:
-            return self._call_context_batched(ctx, tables, s, centers, hold)
+            return self._call_context_batched(ctx, s, centers, hold)
         strands = np.concatenate(s["strands"])
         if n > 1 and not np.all(centers[:-1] <= centers[1:]):
             order = np.argsort(centers, kind="stable")
@@ -1097,60 +1150,61 @@ class CallEngine:
         return torch.stack([p[0].view(nb, sb) for p in per_dev],
                            1).reshape(-1)
 
-    def _call_context_batched(self, ctx: str, tables: list, s: dict,
-                              centers: np.ndarray, hold: list):
+    def _call_context_batched(self, ctx: str, s: dict, centers: np.ndarray,
+                              hold: list):
         """The slice/folded paths: every site in input order, padded with
         center-0 sites (empty read bounds, so zero windows whose probs are
-        dropped at resolve) to the batch decomposition, called one bucket
-        chunk at a time; returns (n, streams, order) in _resolve's form,
-        one stream in site order.  Data-parallel, the sites pad to one
-        bucket of (nb, site_batch) and each device calls its contiguous
-        share of every batch (call_sites_grid)."""
+        dropped at resolve) to the batch decomposition of one device (the
+        JAX engine's bucket chunks of call_sites_batched) or to one bucket
+        over a device list (call_sites_grid), then called batch by batch
+        through the programs (_call_grid); returns (n, streams, order) in
+        _resolve's form, one stream in site order."""
         n = len(centers)
         bs = self.cfg.site_batch
-        ndev = len(self.devices)
-        chunks = ([self._bucket_batches((n + bs - 1) // bs)] if ndev > 1
-                  else self._decompose_batches((n + bs - 1) // bs))
-        pad = sum(chunks) * bs - n
+        nb = (n + bs - 1) // bs
+        nb = (self._bucket_batches(nb) if len(self.devices) > 1
+              else sum(self._decompose_batches(nb)))
+        pad = nb * bs - n
         arrays = [np.concatenate([a, np.zeros(pad, a.dtype)]) for a in (
             centers, np.concatenate(s["strands"]),
             np.concatenate(s["rstart"]), np.concatenate(s["rend"]))]
-        if ndev > 1:
-            return n, [(self._to_host(self._call_grid(ctx, tables, arrays,
-                                                      hold)),
-                        None, None, n)], None
-        dev = [self._h2d(a, hold) for a in arrays]
-        model = self.models.models[ctx]
-        parts, o = [], 0
-        for k in chunks:
-            sl = slice(o * bs, (o + k) * bs)
-            parts.append(call_sites_batched(
-                model, tables[0], *(a[sl] for a in dev), site_batch=bs,
-                kmer=self.kmer, gather_impl=self.cfg.gather_impl))
-            o += k
-        return n, [(self._to_host(torch.cat(parts)), None, None, n)], None
+        probs = self._call_grid(ctx, arrays, hold)
+        return n, [(self._to_host(probs), None, None, n)], None
 
-    def _call_grid(self, ctx: str, tables: list, arrays: list,
+    def _call_grid(self, ctx: str, arrays: list,
                    hold: list) -> torch.Tensor:
-        """Data-parallel slice gather: the padded site arrays as (nb,
-        site_batch) grids split on the second axis into one contiguous
-        share per device; each device calls its (nb, share) grid; the
-        shares come back to the primary device as (nb * site_batch,) u8
+        """The padded site arrays as (nb, site_batch) grids, split on the
+        second axis into one contiguous share per device (all of it on one
+        device; the JAX engine's call_sites_grid over its mesh).  Device
+        d's (nb, share) centers, strands, read bounds go to it as one
+        int32 plan row per batch in one copy, then per batch its row into
+        the device's program of `ctx`, a replay and the program's output
+        into the flush's result, all on the device's stream.  The shares
+        come back to the primary device as (nb * site_batch,) u8
         probabilities in site order."""
         bs = self.cfg.site_batch
-        grids = [a.reshape(-1, bs) for a in arrays]
-        bounds = np.linspace(0, bs, len(self.devices) + 1).astype(int)
+        grids = [a.astype(np.int32).reshape(-1, bs) for a in arrays]
+        nb = grids[0].shape[0]
         per_dev = []
         for d in range(len(self.devices)):
-            lo, hi = bounds[d], bounds[d + 1]
+            lo, hi = self._share_bounds[d], self._share_bounds[d + 1]
+            share = hi - lo
+            # a batch's plan row: centers, strands, rstart, rend
+            # (programs.site_views)
+            plan = np.concatenate([g[:, lo:hi] for g in grids], axis=1)
             with self._stream(d):
-                dev = [self._h2d(np.ascontiguousarray(g[:, lo:hi]), hold, d)
-                       for g in grids]
-                per_dev.append([call_sites_grid(
-                    self.replicas[d].models[ctx], tables[d], *dev,
-                    kmer=self.kmer)])
+                rows = self._h2d(plan, hold, d)
+                res = torch.empty(nb * share, dtype=torch.uint8,
+                                  device=self.devices[d])
+                program = self._programs[d][ctx]
+                for b in range(nb):
+                    program(rows[b], res[b * share:(b + 1) * share])
+                per_dev.append([res])
         per_dev = self._to_primary(per_dev)
-        return torch.cat([p[0] for p in per_dev], dim=1).reshape(-1)
+        if len(per_dev) == 1:
+            return per_dev[0][0]
+        return torch.cat([p[0].view(nb, -1) for p in per_dev],
+                         dim=1).reshape(-1)
 
     # -- resolve and emit --------------------------------------------------
     def _emit(self, inflight, out: list):
@@ -1329,11 +1383,11 @@ class CallEngine:
 
     def release(self):
         """On the card, once the engine's runs are done: drop its programs
-        (their graphs) and tables, then empty the allocator's cache.  A
-        dead engine's graph pool and the blocks cached on its streams are
-        reused by no later engine, so without this a process that runs
-        `call` again and again keeps a few GB more reserved each run
-        (scripts/probe_graph_memory.py)."""
+        (their graphs) and tables, on every path, then empty the
+        allocator's cache.  A dead engine's graph pool and the blocks
+        cached on its streams are reused by no later engine, so without
+        this a process that runs `call` again and again keeps a few GB
+        more reserved each run (scripts/probe_graph_memory.py)."""
         if self.device.type != "cuda":
             return
         for d in dict.fromkeys(self.devices):

@@ -3,21 +3,26 @@ on the card.
 
 The JAX engine calls the device once per bucket chunk through a compiled
 program that it caches per static shape (hifimeth_tpu/engine/call.py: "one
-dispatch per bucket chunk; each reuses a cached program"; call_sites_pallas
-and call_sites_fused are `jax.jit` + `lax.map` over the chunk's batches).
-The port's counterpart is a CUDA graph per batch: a `BatchProgram` holds
-one batch's body for one (replica, context, strand, path, compute dtype)
-with static buffers, so that a batch costs its dispatch thread three
-enqueues (plan in, replay, result out) where the body itself is some fifty
-(the gather, bn0, eight convolutions with bias and ReLU, two linears and
-the u8 conversion) on the pallas path.
+dispatch per bucket chunk; each reuses a cached program"; call_sites_pallas,
+call_sites_fused, call_sites_batched and call_sites_grid are `jax.jit` +
+`lax.map` over the chunk's batches).  The port's counterpart is a CUDA
+graph per batch: a `BatchProgram` holds one batch's body for one (replica,
+context, strand, path, compute dtype, convolution route) with static
+buffers, so that a batch costs its dispatch thread three enqueues (plan
+in, replay, result out) where the body itself is some fifty (the gather,
+bn0, eight convolutions with bias and ReLU, two linears and the u8
+conversion) on the pallas path, and some sixty on slice and folded (the
+indexing gather, its read-bounds mask and strand turn, then the same).
 
- - The plan: one int32 buffer of ngrp * GROUP + ngrp entries, the rels
-   (ngrp, GROUP) first and the bases (ngrp,) after them, both contiguous
-   views of it (`plan_views`); rels lead so that each view starts on a
-   128-byte boundary.  A batch is one copy of its plan row into it.
- - The output: (site_batch,) u8, allocated outside the capture; the body
-   writes its probabilities into it.
+ - The plan: one int32 buffer.  On the planned paths (pallas, fused) it
+   holds ngrp * GROUP + ngrp entries, the rels (ngrp, GROUP) first and
+   the bases (ngrp,) after them, both contiguous views of it
+   (`plan_views`); rels lead so that each view starts on a 128-byte
+   boundary.  On slice and folded it holds a batch's n sites as four
+   (n,) arrays, centers, strands, rstart and rend (`site_views`).  A
+   batch is one copy of its plan row into it.
+ - The output: (n,) u8 for the batch's n sites, allocated outside the
+   capture; the body writes its probabilities into it.
  - On the card (given a `GraphPool`) the body is captured on the pool's
    stream as a `torch.cuda.CUDAGraph` into the pool's memory, after one
    eager warm-up run there (cuDNN picks its algorithms, the kernels load
@@ -78,6 +83,12 @@ def plan_views(plan: torch.Tensor, ngrp: int):
     """A batch's (ngrp * GROUP + ngrp,) int32 plan -> (bases (ngrp,), rels
     (ngrp, GROUP)), contiguous views of it."""
     return plan[ngrp * GROUP:], plan[:ngrp * GROUP].view(ngrp, GROUP)
+
+
+def site_views(plan: torch.Tensor, n: int):
+    """A slice/folded batch's (4 * n,) int32 plan -> its n sites' (centers,
+    strands, rstart, rend), contiguous (n,) views of it."""
+    return plan.view(4, n).unbind(0)
 
 
 class GraphPool:

@@ -17,7 +17,9 @@ JAX package's XLA gathers instead: an (N, 8) position-major table
 (`featurize_planes`) or its (N/16, 128) fold (`featurize_planes_folded`),
 per-site windows cut by indexing with each site's read bounds masked
 (`gather_windows_slice`, `gather_windows_folded`), and the CNN per batch
-(`call_sites_batched`).  They have no kernel in either package.
+(`call_sites_step`, one batch; `call_sites_batched`, a chunk of them; the
+engine's programs run one step a batch).  They have no kernel in either
+package.
 
 `gather_windows` and `call_sites` are the JAX package's reference per-site
 path: one window per site by plain indexing (no plan, no kernel), against
@@ -109,11 +111,23 @@ def featurize_planes(planes: torch.Tensor) -> torch.Tensor:
     return featurize_planes_seg(planes, planes.shape[1])
 
 
-def featurize_planes_seg(prefix: torch.Tensor, cap: int) -> torch.Tensor:
+def featurize_planes_seg(prefix: torch.Tensor, cap: int,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """Featurize the filled (5, m) prefix of the plane buffer into a
     (cap, 8) table whose tail [m, cap) is zero: the transpose of
-    featurize_planes_t_seg's table."""
-    return featurize_planes_t_seg([prefix], cap).T.contiguous()
+    featurize_planes_t_seg's table.  With `out` (a contiguous (cap, 8)
+    float32 table on the prefix's device, such as the engine's persistent
+    table that the slice/folded programs read) the table is written there
+    and returned."""
+    table_t = featurize_planes_t_seg([prefix], cap)
+    if out is None:
+        return table_t.T.contiguous()
+    if (tuple(out.shape) != (cap, 8) or out.dtype != torch.float32
+            or out.device != prefix.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({cap}, 8) float32 table "
+                         f"on {prefix.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    return out.copy_(table_t.T)
 
 
 def featurize_planes_folded(planes: torch.Tensor,
@@ -133,6 +147,25 @@ def fold_table(feats: torch.Tensor, fold: int = FOLD) -> torch.Tensor:
     return feats.view(feats.shape[0] // fold, fold * feats.shape[1])
 
 
+_PERMS: dict = {}
+
+
+def _rev_perm(device: torch.device, channels: int) -> torch.Tensor:
+    """REV_CHANNEL_PERM on the first 8 of `channels` channels (the rest in
+    place) as an int64 index on `device`, made there once per process and
+    waited for: a list index would copy a new host tensor to the device on
+    every call, which a CUDA graph capture refuses."""
+    key = (device, channels)
+    perm = _PERMS.get(key)
+    if perm is None:
+        perm = torch.tensor(list(REV_CHANNEL_PERM) + list(range(8, channels)),
+                            dtype=torch.int64).to(device)
+        if perm.is_cuda:
+            torch.cuda.synchronize(device)
+        _PERMS[key] = perm
+    return perm
+
+
 def _mask_and_orient(w: torch.Tensor, centers: torch.Tensor,
                      strands: torch.Tensor, rstart: torch.Tensor,
                      rend: torch.Tensor, kmer: int) -> torch.Tensor:
@@ -144,8 +177,7 @@ def _mask_and_orient(w: torch.Tensor, centers: torch.Tensor,
     pos = centers.to(torch.int32)[:, None] + j[None, :]
     valid = (pos >= rstart[:, None]) & (pos < rend[:, None])
     w = w * valid[..., None].to(w.dtype)
-    perm = list(REV_CHANNEL_PERM) + list(range(8, w.shape[-1]))
-    w_rev = w.flip(1)[..., perm]
+    w_rev = w.flip(1)[..., _rev_perm(w.device, w.shape[-1])]
     return torch.where((strands != 0)[:, None, None], w_rev, w)
 
 
@@ -227,15 +259,35 @@ _BATCHED_GATHERS = {"slice": gather_windows_slice,
                     "folded": gather_windows_folded}
 
 
+def call_sites_step(model: DNAModNet, feats: torch.Tensor,
+                    centers: torch.Tensor, strands: torch.Tensor,
+                    rstart: torch.Tensor, rend: torch.Tensor,
+                    kmer: int = KMER_SIZE, gather_impl: str = "slice",
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """One batch of sites (one lax.map step of the JAX package's
+    call_sites_batched): windows by the slice gather over the (N, 8)
+    table or the folded gather over its fold, the CNN on them, (n,) u8
+    scaled probs.  With `out` ((n,) u8) the probs are written there and
+    `out` is returned, so a captured program's body leaves no allocation
+    behind (engine/programs.py)."""
+    if gather_impl not in _BATCHED_GATHERS:
+        raise ValueError(f"gather_impl must be slice or folded, got "
+                         f"{gather_impl!r}")
+    w = _BATCHED_GATHERS[gather_impl](feats, centers, strands, rstart, rend,
+                                      kmer)
+    # NWC -> the NCW layout DNAModNet takes
+    probs = logits_to_scaled_probs(model(w.transpose(1, 2).contiguous()))
+    return probs if out is None else out.copy_(probs)
+
+
 def call_sites_batched(model: DNAModNet, feats: torch.Tensor,
                        centers: torch.Tensor, strands: torch.Tensor,
                        rstart: torch.Tensor, rend: torch.Tensor,
                        site_batch: int, kmer: int = KMER_SIZE,
                        gather_impl: str = "slice") -> torch.Tensor:
-    """All sites of one chunk, site_batch at a time: windows by the slice
-    gather over the (N, 8) table or the folded gather over its fold, the
-    CNN on them, u8 scaled probs (n,) in site order.  n must be a multiple
-    of site_batch (the engine pads with center-0 sites)."""
+    """All sites of one chunk, site_batch at a time (call_sites_step each),
+    u8 scaled probs (n,) in site order.  n must be a multiple of
+    site_batch (the engine pads with center-0 sites)."""
     if gather_impl not in _BATCHED_GATHERS:
         raise ValueError(f"gather_impl must be slice or folded, got "
                          f"{gather_impl!r}")
@@ -243,15 +295,12 @@ def call_sites_batched(model: DNAModNet, feats: torch.Tensor,
     if site_batch < 1 or n % site_batch:
         raise ValueError(f"{n} sites are not a multiple of site_batch "
                          f"{site_batch}")
-    gather = _BATCHED_GATHERS[gather_impl]
     parts = [torch.empty(0, dtype=torch.uint8, device=feats.device)]
     for o in range(0, n, site_batch):
         sl = slice(o, o + site_batch)
-        w = gather(feats, centers[sl], strands[sl], rstart[sl], rend[sl],
-                   kmer)
-        # NWC -> the NCW layout DNAModNet takes
-        parts.append(logits_to_scaled_probs(
-            model(w.transpose(1, 2).contiguous())))
+        parts.append(call_sites_step(model, feats, centers[sl], strands[sl],
+                                     rstart[sl], rend[sl], kmer,
+                                     gather_impl))
     return torch.cat(parts)
 
 

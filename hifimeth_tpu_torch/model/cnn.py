@@ -33,6 +33,15 @@ bits), so every product is exact and the sums accumulate in float32.
 Each layer rounds once, after its ReLU.  The FC outputs stay float32 up to
 their bias, as in the JAX engine's compiled programs; JAX's eager
 dnamodnet_apply rounds them to bf16 first.
+
+Convolution routes (`set_conv_impl`, CallConfig.conv_impl), the JAX
+package's `dnamodnet_apply(conv_impl=)`: "direct" runs every conv as a
+cuDNN/ATen conv1d; "im2col" runs every conv as one matrix product, the
+padded input unfolded into K strided columns, (B*Lo, Cin*K) @ (Cin*K,
+Cout) plus the bias (the JAX package's _conv1d_im2col); "auto" takes
+im2col where Cin * K <= 256, which is conv1 of every shipped model.  On
+the card the product runs on cuBLAS in full float32 (TF32 off, as
+`exact_float32` sets it; the route refuses to run with TF32 on).
 """
 from __future__ import annotations
 
@@ -48,6 +57,23 @@ def exact_float32() -> None:
     """Run float32 convolutions and matmuls in full float32 (no TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+#: DNAModNet.set_conv_impl's routes (see the module notes)
+CONV_IMPLS = ("direct", "im2col", "auto")
+#: "auto" takes im2col for a conv with Cin * K at most this (the JAX rule)
+IM2COL_MAX_CIN_K = 256
+
+
+def uses_im2col(conv_impl: str, cin: int, k: int) -> bool:
+    """Whether a conv of `cin` input channels and kernel `k` runs as one
+    matrix product under `conv_impl` (the JAX package's dnamodnet_apply
+    rule); raises ValueError for an unknown route."""
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"unknown conv_impl {conv_impl!r}; choose "
+                         f"{', '.join(CONV_IMPLS)}")
+    return conv_impl == "im2col" or (conv_impl == "auto"
+                                     and cin * k <= IM2COL_MAX_CIN_K)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +235,9 @@ class _ChannelAffine(nn.Module):
 
 
 class _Conv(nn.Module):
-    """Conv1d with BN folded in, possibly asymmetric zero padding, ReLU."""
+    """Conv1d with BN folded in, possibly asymmetric zero padding, ReLU;
+    direct, or as one matrix product when `im2col` is set (DNAModNet's
+    set_conv_impl sets it, with the weight as that product's matrix)."""
 
     def __init__(self, cin: int, cout: int, k: int, geometry):
         super().__init__()
@@ -219,9 +247,21 @@ class _Conv(nn.Module):
         # python ints for the forward: reading the buffer there would sync
         # with the device on every call
         self.stride, self.lo, self.hi = (int(v) for v in geometry)
+        self.im2col = False
+        self._mat = None                 # im2col's (Cin*K, Cout) matrix
+
+    def matrix(self, weight: torch.Tensor) -> torch.Tensor:
+        """A (Cout, Cin, K) weight as the im2col product's (Cin*K, Cout)
+        matrix, row c*K + k for channel c and tap k."""
+        return weight.detach().reshape(weight.shape[0], -1).t().contiguous()
 
     def forward(self, h: torch.Tensor,
                 weight: torch.Tensor | None = None) -> torch.Tensor:
+        """`weight`: the bf16-valued weight of DNAModNet's bf16 mode, in
+        the route's layout ((Cin*K, Cout) for im2col); default the float32
+        one."""
+        if self.im2col:
+            return self._im2col(h, self._mat if weight is None else weight)
         w = self.weight if weight is None else weight
         if self.lo == self.hi:
             h = F.conv1d(h, w, self.bias, stride=self.stride,
@@ -230,6 +270,21 @@ class _Conv(nn.Module):
             h = F.conv1d(F.pad(h, (self.lo, self.hi)), w, self.bias,
                          stride=self.stride)
         return F.relu(h)
+
+    def _im2col(self, h: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+        """(B, Cin, L) -> (B, Cout, Lo): the padded input's K strided
+        columns as (B*Lo, Cin*K) patches, one product with the matrix plus
+        the bias, ReLU, back to channel-major."""
+        if h.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("conv_impl im2col needs full float32 "
+                               "products: TF32 is on (exact_float32)")
+        b, cin, _ = h.shape
+        cols = F.pad(h, (self.lo, self.hi)).unfold(2, mat.shape[0] // cin,
+                                                   self.stride)
+        lo = cols.shape[2]                       # (B, Cin, Lo, K)
+        patches = cols.permute(0, 2, 1, 3).reshape(b * lo, mat.shape[0])
+        out = torch.addmm(self.bias, patches, mat).relu_()
+        return out.view(b, lo, -1).transpose(1, 2).contiguous()
 
 
 class DNAModNet(nn.Module):
@@ -246,22 +301,38 @@ class DNAModNet(nn.Module):
         self.fc1 = nn.Linear(fc1_in, fc1_out)
         self.fc2 = nn.Linear(fc1_out, n_out)
         self.compute_dtype = torch.float32
+        self.conv_impl = "direct"
         self._low: tuple = ()            # bf16 mode's weights, see below
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "DNAModNet":
         """float32 or bfloat16 (see the module notes).  bf16 keeps, beside
         the float32 parameters, every conv and FC weight rounded to bf16
-        (stored as float32), so call it after moving the module to its
-        device."""
+        (stored as float32; an im2col conv's as its matrix), so call it
+        after moving the module to its device."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, "
                              f"got {dtype}")
         self.compute_dtype = dtype
         self._low = () if dtype == torch.float32 else (
-            [c.weight.detach().to(dtype).float() for c in self.convs],
+            [c.matrix(c.weight.detach().to(dtype).float()) if c.im2col
+             else c.weight.detach().to(dtype).float() for c in self.convs],
             self.fc1.weight.detach().to(dtype).float(),
             self.fc2.weight.detach().to(dtype).float())
         return self
+
+    def set_conv_impl(self, conv_impl: str) -> "DNAModNet":
+        """The convolutions' route, "direct", "im2col" or "auto", per
+        layer by the JAX package's rule (see the module notes).  The
+        im2col matrices are made here, once, from the weights on the
+        module's device, so call it after moving the module there; the
+        bf16 weights follow the route."""
+        routes = [uses_im2col(conv_impl, c.weight.shape[1], c.weight.shape[2])
+                  for c in self.convs]
+        self.conv_impl = conv_impl
+        for conv, im2col in zip(self.convs, routes):
+            conv.im2col = im2col
+            conv._mat = conv.matrix(conv.weight) if im2col else None
+        return self.set_compute_dtype(self.compute_dtype)
 
     @classmethod
     def from_state_dict(cls, sd: dict[str, torch.Tensor]) -> "DNAModNet":
@@ -292,11 +363,13 @@ class DNAModNet(nn.Module):
 
 
 def load_model_npz(path: str, device: torch.device,
-                   compute_dtype: torch.dtype = torch.float32) -> DNAModNet:
-    """Shipped `models/<ctx>.npz` -> DNAModNet on `device`."""
-    return DNAModNet.from_state_dict(
-        params_from_jax(load_params_npz(path))).to(device).set_compute_dtype(
-            compute_dtype)
+                   compute_dtype: torch.dtype = torch.float32,
+                   conv_impl: str = "direct") -> DNAModNet:
+    """Shipped `models/<ctx>.npz` -> DNAModNet on `device`, in the compute
+    dtype and convolution route given."""
+    model = DNAModNet.from_state_dict(params_from_jax(load_params_npz(path)))
+    return model.to(device).set_compute_dtype(compute_dtype).set_conv_impl(
+        conv_impl)
 
 
 def logits_to_scaled_probs(logits: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ plant composition) and runs it through every (path, mode) of --paths and
 are interleaved over the settings (pair 0 of every setting, then pair 1,
 ...) and each pair's order alternates (eager first in even pairs, graphs
 first in odd ones), so drift on the host spreads over settings and both
-orders.  Paths: pallas, fused, bf16 (pallas in bf16).  Modes: async (the
+orders.  Paths: pallas, fused, bf16 (pallas in bf16), slice, folded (the
+indexing gathers, one program a context).  Modes: async (the
 default pipeline, decode workers by the engine's rule), sync-w0
 (--sync-emit --decode-workers 0).  Prints, per run, its wall seconds,
 sites/s and the engine's `capture` and `dispatch` timers; per setting, the
@@ -22,7 +23,7 @@ first run of their path (checked).  Every run starts from an empty
 allocator cache.
 
 Usage (on a machine with a CUDA device):
-    python3 scripts/compare_graphs_torch.py [--paths pallas,fused,bf16]
+    python3 scripts/compare_graphs_torch.py [--paths pallas,fused,bf16,slice,folded]
         [--modes async,sync-w0] [--pairs N] [--reads N] [--out DIR]
 With --out, the JSON summary is also written to
 DIR/compare_graphs.r<reads>.json.
@@ -42,7 +43,9 @@ sys.path.insert(0, ROOT)
 
 PATHS = {"pallas": dict(gather_impl="pallas"),
          "fused": dict(gather_impl="fused"),
-         "bf16": dict(gather_impl="pallas", compute_dtype="bfloat16")}
+         "bf16": dict(gather_impl="pallas", compute_dtype="bfloat16"),
+         "slice": dict(gather_impl="slice"),
+         "folded": dict(gather_impl="folded")}
 MODES = {"async": {}, "sync-w0": dict(async_emit=False, decode_workers=0)}
 
 

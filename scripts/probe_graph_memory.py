@@ -3,8 +3,9 @@
 off, with no cache emptied between runs.
 
 Builds the chip smoke's synthetic input (--reads reads x 15 kb, seed 0)
-and runs it --rounds times through pallas, fused and pallas in bf16, each
-with CallConfig.graphs off and then on, in one process, never calling
+and runs it --rounds times through each path of --paths (default pallas,
+fused and pallas in bf16; also slice and folded), each with
+CallConfig.graphs off and then on, in one process, never calling
 torch.cuda.empty_cache or the garbage collector.  After each run it prints
 the allocator's allocated and reserved MiB, the reserved and allocated MiB
 of segments in graph pools (private pools) and how many such pools hold
@@ -14,6 +15,7 @@ same figures and ends the probe (exit code 1).
 
 Usage (on a machine with a CUDA device):
     python3 scripts/probe_graph_memory.py [--rounds N] [--reads N]
+        [--paths pallas,fused,bf16,slice,folded]
 """
 import argparse
 import os
@@ -27,7 +29,9 @@ sys.path.insert(0, ROOT)
 
 PATHS = {"pallas": dict(gather_impl="pallas"),
          "fused": dict(gather_impl="fused"),
-         "bf16": dict(gather_impl="pallas", compute_dtype="bfloat16")}
+         "bf16": dict(gather_impl="pallas", compute_dtype="bfloat16"),
+         "slice": dict(gather_impl="slice"),
+         "folded": dict(gather_impl="folded")}
 
 
 def memory(torch) -> str:
@@ -51,7 +55,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reads", type=int, default=200)
+    ap.add_argument("--paths", default="pallas,fused,bf16")
     args = ap.parse_args()
+    paths = args.paths.split(",")
+    for p in paths:
+        if p not in PATHS:
+            ap.error(f"unknown path {p!r}; choose from {sorted(PATHS)}")
     import torch
     if not torch.cuda.is_available():
         print("probe_graph_memory: no CUDA device", file=sys.stderr)
@@ -75,7 +84,8 @@ def main() -> int:
         make_bam(big, args.reads, 15000, seed=0)
         out = os.path.join(td, "out.bam")
         for r in range(args.rounds):
-            for p, fields in PATHS.items():
+            for p in paths:
+                fields = PATHS[p]
                 for graphs in (False, True):
                     label = (f"round {r} {p} "
                              f"{'graphs' if graphs else 'eager'}")

@@ -347,15 +347,27 @@ def test_feat_channels_tags_equal_eight(tmp_path, capsys, channels):
 
 
 def test_feat_channels_ignored_off_slice(capsys):
-    """Every path takes --feat-channels {8,32,128} and keeps 8 channels:
-    the parsed configuration equals the one without the flag."""
+    """Every path takes --feat-channels {8,32,128} into
+    CallConfig.feat_channels (the parsed configuration equals the one
+    without the flag but for that field), and its engine warns when it is
+    not 8 and keeps 8 channels."""
+    import dataclasses
+
     from hifimeth_tpu_torch.cli import _parse_call
     for impl in ("slice", "pallas", "folded", "fused"):
-        plain = _parse_call(["--gather-impl", impl, "a.bam", "b.bam"])
+        plain, pos, shard = _parse_call(["--gather-impl", impl, "-c", "cpg",
+                                         "--device", "cpu", "a.bam", "b.bam"])
+        assert plain.feat_channels == 8
         for channels in ("8", "32", "128"):
-            got = _parse_call(["--gather-impl", impl, "--feat-channels",
+            got = _parse_call(["--gather-impl", impl, "-c", "cpg",
+                               "--device", "cpu", "--feat-channels",
                                channels, "a.bam", "b.bam"])
-            assert got == plain
+            assert got == (dataclasses.replace(
+                plain, feat_channels=int(channels)), pos, shard)
+            assert "--feat-channels" not in capsys.readouterr().err
+            eng = CallEngine(got[0])
+            assert eng.cfg.feat_channels == 8
+            assert got[0].feat_channels == int(channels)   # not mutated
             err = capsys.readouterr().err
             assert ("--feat-channels is ignored" in err) == (channels != "8")
     from hifimeth_tpu_torch.cli import main

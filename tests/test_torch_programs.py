@@ -174,7 +174,9 @@ def test_graphs_split_over_two_cpu_replicas(tmp_path, async_emit):
 def test_engine_builds_one_program_per_context_and_strand():
     """Per device entry: a persistent table and a program per (context,
     strand) with the plan and output sizes of one batch, graphs on or off;
-    slice builds neither (a table per flush, no plan)."""
+    slice builds a (cap, 8) table and a program per context, whose plan
+    holds a batch's four site arrays (tests/test_torch_slice_programs.py
+    holds those programs further)."""
     eng = CallEngine(CallConfig(**FORCED, data_parallel=True),
                      devices=["cpu", "cpu"])
     ngrp = FORCED["site_batch"] // GROUP
@@ -189,7 +191,13 @@ def test_engine_builds_one_program_per_context_and_strand():
             assert tuple(p.plan.shape) == (ngrp * (GROUP + 1),)
             assert tuple(p.out.shape) == (FORCED["site_batch"],)
     sl = CallEngine(CallConfig(**FORCED, gather_impl="slice"))
-    assert sl._programs is None and sl._tables is None
+    assert len(sl._programs) == len(sl._tables) == 1
+    assert tuple(sl._tables[0].shape) == (FORCED["buffer_bases"], 8)
+    assert set(sl._programs[0]) == set(FORCED["contexts"])
+    for p in sl._programs[0].values():
+        assert p.graph is None
+        assert tuple(p.plan.shape) == (4 * FORCED["site_batch"],)
+        assert tuple(p.out.shape) == (FORCED["site_batch"],)
     eager = CallEngine(CallConfig(**FORCED, graphs=False))
     assert len(eager._programs) == len(eager._tables) == 1
     assert set(eager._programs[0]) == set(eng._programs[0])

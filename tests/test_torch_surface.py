@@ -6,8 +6,11 @@ method of its classes, must have a same-named counterpart in the same-path
 module of hifimeth_tpu_torch/, also read with ast, or an entry in EXEMPT
 below.  An entry names the port's counterpart (checked to exist) or gives
 a reason; a reason alone may not cover a name that a module of the JAX
-package calls.  The two CLIs must take the same subcommands and, for each,
-the same options, apart from the port's --device.
+package calls.  Every field of every dataclass of the JAX package must be
+a field of the same-named dataclass in the same-path module of the port,
+or an entry in FIELD_EXEMPT; the port's CallConfig takes every field and
+default of the JAX one.  The two CLIs must take the same subcommands and,
+for each, the same options, apart from the port's --device.
 """
 import ast
 import os
@@ -146,6 +149,84 @@ def test_exemption_is_sound(entry):
         return
     module, name = counterpart.split(":")
     assert name in _defined(PORT_PKG, module), counterpart
+
+
+# -- dataclass fields --------------------------------------------------------
+
+#: "module:Class.field" of the JAX package -> why the port has no such field
+#: (none today: each entry must name a field the port lacks)
+FIELD_EXEMPT: dict = {}
+
+
+def _is_dataclass(node) -> bool:
+    for d in node.decorator_list:
+        f = d.func if isinstance(d, ast.Call) else d
+        if (isinstance(f, ast.Name) and f.id == "dataclass") or \
+                (isinstance(f, ast.Attribute) and f.attr == "dataclass"):
+            return True
+    return False
+
+
+def _dataclass_fields(pkg, module) -> dict:
+    """Class name -> its field names, for each top-level dataclass of a
+    module (annotated names of the class body, ClassVar ones left out)."""
+    path = os.path.join(pkg, module)
+    if not os.path.exists(path):
+        return {}
+    out = {}
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.ClassDef) and _is_dataclass(node):
+            out[node.name] = [
+                st.target.id for st in node.body
+                if isinstance(st, ast.AnnAssign)
+                and isinstance(st.target, ast.Name)
+                and "ClassVar" not in ast.unparse(st.annotation)]
+    return out
+
+
+JAX_FIELDS = sorted(f"{m}:{cls}.{name}" for m in _modules(JAX_PKG)
+                    for cls, names in _dataclass_fields(JAX_PKG, m).items()
+                    for name in names)
+
+
+def test_fields_are_read():
+    assert len(JAX_FIELDS) > 80
+    assert "engine/call.py:CallConfig.conv_impl" in JAX_FIELDS
+    assert "engine/call.py:CallConfig.feat_channels" in JAX_FIELDS
+    for entry in FIELD_EXEMPT:
+        assert entry in JAX_FIELDS and FIELD_EXEMPT[entry], entry
+
+
+@pytest.mark.parametrize("entry", JAX_FIELDS)
+def test_port_dataclass_has_field(entry):
+    module, qual = entry.split(":")
+    cls, name = qual.split(".")
+    port = _dataclass_fields(PORT_PKG, module)
+    assert cls in port, f"hifimeth_tpu_torch/{module} has no dataclass {cls}"
+    if name in port[cls]:
+        assert entry not in FIELD_EXEMPT, f"{entry} is ported: drop it"
+        return
+    assert entry in FIELD_EXEMPT, (f"{entry} has no field in "
+                                   f"hifimeth_tpu_torch/{module}")
+
+
+def test_call_config_takes_every_jax_field_and_default():
+    """The port's CallConfig built from every field name and default of the
+    JAX one (a JAX library caller's configuration) keeps those values and
+    builds an engine on the CPU."""
+    import dataclasses
+
+    from hifimeth_tpu.engine.call import CallConfig as JaxCallConfig
+    from hifimeth_tpu_torch.engine.call import CallConfig, CallEngine
+    jax_cfg = JaxCallConfig()
+    values = {f.name: getattr(jax_cfg, f.name)
+              for f in dataclasses.fields(JaxCallConfig)}
+    cfg = CallConfig(**values, device="cpu")
+    for name, value in values.items():
+        assert getattr(cfg, name) == value, name
+    eng = CallEngine(dataclasses.replace(cfg, contexts=("CpG",)))
+    assert eng.cfg.conv_impl == jax_cfg.conv_impl
+    assert eng.cfg.feat_channels == jax_cfg.feat_channels
 
 
 # -- the CLIs ----------------------------------------------------------------
