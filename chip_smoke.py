@@ -35,7 +35,9 @@ Phases (any failure exits non-zero before the final line is printed):
     the async run); pallas in bf16 (group_windows_t writing bf16
     windows); pallas on a forced schedule (256 Ki buffer, 48 Ki flushes,
     3 decode workers), which must roll buffers over, cut flushes at
-    segments and carry reads; pallas with CallConfig.conv_impl "im2col"
+    segments and carry reads, and make fewer page-locked host buffers (the
+    engine's `pinned_new`) than it has flushes, each of which takes at
+    least two, so the engine's pool reuses them; pallas with CallConfig.conv_impl "im2col"
     (every conv one cuBLAS float32 product over unfolded columns) and
     slice with "auto" (conv1 so); and the window-fetch microbenchmark
     (scripts/microbench_torch_gather.py, every variant, 2 batches), which
@@ -868,7 +870,9 @@ def run_main(big, out, label, fields, td, devices=None):
     engine's device list `devices`); every kernel's count is set to 0 just
     before it and read just after, and so is the peak device memory.
     Returns the launch counts and the run's stats JSON, with its sites/s,
-    its launches and its peak device memory (MiB allocated, reserved)."""
+    its launches and its peak device memory (MiB allocated, reserved).
+    On the planned paths the engine's `batches` count must equal the
+    launches of the path's kernel (one a program call)."""
     import gc
 
     import torch
@@ -898,6 +902,10 @@ def run_main(big, out, label, fields, td, devices=None):
     print(f"[main {label}] engine timers (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in run["timers"].items())
           + f"; schedule {run['schedule']}; config {run['config']}")
+    gathers = launches["group_windows_t"] + launches["fused_forward"]
+    if gathers and run["timers"]["batches"] != gathers:
+        raise AssertionError(f"{label}: {run['timers']['batches']} batches "
+                             f"counted, {gathers} kernel launches")
     recs = read_tags(out)
     n_ml = sum(len(ml) for _, _, ml, _ in recs if ml is not None)
     if len(recs) != 200 or any(mm is None for _, mm, _, _ in recs):
@@ -1881,6 +1889,11 @@ def main() -> int:
                 and sched["flushes"] > sched["buffers"]):
             return fail(f"the forced schedule did not roll buffers over, "
                         f"cut flushes and carry reads: {sched}")
+        made = runs["pallas-forced"]["timers"]["pinned_new"]
+        if made >= sched["flushes"]:
+            return fail(f"the forced schedule made {made} page-locked buffers "
+                        f"over {sched['flushes']} flushes: the pool does not "
+                        f"reuse them")
         if runs["pallas-bf16"]["config"]["compute_dtype"] != "bfloat16":
             return fail("the bf16 run did not compute in bf16")
         print("[main summary] sites/s: " + ", ".join(

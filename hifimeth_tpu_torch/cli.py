@@ -86,7 +86,11 @@ OPTIONS:
 
 HIFIMETH_TRACE=1 prints one line per flush of the asynchronous pipeline,
   [trace flush N] flush@t dispatch0@t dispatch1@t resolve0@t resolve1@t
-  emit0@t emit1@t (seconds from the first event), as the JAX package does"""
+  emit0@t emit1@t (seconds from the first event), as the JAX package does;
+  the --stats-json timers then also hold each stage's thread CPU seconds
+  (<stage>_cpu) and the file a list `spans`: the flush-level spans and
+  waits (name, flush, thread, start, end, cpu, parent, wait), start and
+  end on Python's perf_counter clock"""
 
 
 def _parse_call(argv):

@@ -51,10 +51,16 @@ them), the results gathered back to the first device in site order;
 `run_call` with a multi-process ShardSpec calls only that process's read
 blocks.
 
-With `trace` (CLI: HIFIMETH_TRACE set, as in the JAX package) the async
-pipeline stamps seven events per flush, `flush` (handed to the dispatch
-queue), `dispatch0/1`, `resolve0/1` and `emit0/1` (around each worker's
-work), and log_timers prints one `[trace flush N]` line per flush.
+Every stage records into the engine's `spans` (engine/spans.py): its
+seconds, the seconds it blocks (`decode_wait`, `flush_wait`,
+`resolve_wait`, the workers' `*_idle`) and counts (`slots`, `batches`,
+`pinned_new`), read as `timers` and written to `--stats-json`.  With
+`trace` (CLI: HIFIMETH_TRACE set, as in the JAX package) each span also
+takes its thread's CPU seconds (`<name>_cpu`) and the flush-level spans
+leave records (`--stats-json` `spans`); the async pipeline stamps seven
+events per flush, `flush` (handed to the dispatch queue), `dispatch0/1`,
+`resolve0/1` and `emit0/1` (around each worker's work), and log_timers
+prints one `[trace flush N]` line per flush.
 """
 from __future__ import annotations
 
@@ -65,7 +71,6 @@ import os
 import queue
 import sys
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -90,6 +95,7 @@ from ..parallel.dist import ShardSpec, shard_path, sharded_read_stream
 from ..parallel.mesh import local_devices, resolve_devices
 from ..utils.logging import bytes_to_datasize, format_with_commas, log, warn
 from .programs import BatchProgram, GraphPool, plan_views, site_views
+from .spans import SpanRecorder
 
 PROG = "hifimeth-tpu-torch"
 
@@ -177,17 +183,17 @@ class _DecodePrefetcher:
     results with the input index; iterating reorders them through a dict,
     so output order always equals input order.  Yields (rec, (read, found))
     pairs for CallEngine.add_read.  A worker's exception is raised by the
-    iterator.  Worker decode/site-scan seconds accumulate in
-    t_decode/t_sites.  `close` stops and joins every thread."""
+    iterator.  The workers' decode and site-scan seconds and the iterator's
+    wait for the next read in order go to `spans` (`decode`, `sites`,
+    `decode_wait`).  `close` stops and joins every thread."""
 
     _DONE = object()
 
-    def __init__(self, stream, min_read_size: int, workers: int = 1,
-                 depth: int = 64):
+    def __init__(self, stream, min_read_size: int, spans: SpanRecorder,
+                 workers: int = 1, depth: int = 64):
         self.min_read_size = min_read_size
+        self.spans = spans
         self.workers = max(1, workers)
-        self.t_decode = 0.0
-        self.t_sites = 0.0
         self._exc = None
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -223,7 +229,7 @@ class _DecodePrefetcher:
     def _worker(self):
         # a worker consumes its queue to the end whatever happens, so the
         # feeder never blocks on a full queue and close() always returns
-        t_dec = t_sit = 0.0
+        spans = self.spans
         while True:
             item = self._inq.get()
             if item is self._DONE:
@@ -234,20 +240,15 @@ class _DecodePrefetcher:
             try:
                 read = found = None
                 if rec.l_seq >= self.min_read_size:
-                    t0 = time.perf_counter()
-                    read = decode_read(rec)
-                    t1 = time.perf_counter()
-                    t_dec += t1 - t0
+                    with spans.span("decode", keep=False):
+                        read = decode_read(rec)
                     if read is not None:
-                        found = sitefind.scan_all(read.seq)
-                        t_sit += time.perf_counter() - t1
+                        with spans.span("sites", keep=False):
+                            found = sitefind.scan_all(read.seq)
             except BaseException as e:  # noqa: BLE001 - raised by __iter__
                 self._fail(e)
                 continue
             self._outq.put((i, rec, (read, found)))
-        with self._lock:
-            self.t_decode += t_dec
-            self.t_sites += t_sit
         self._outq.put(self._DONE)
 
     def __iter__(self):
@@ -258,7 +259,8 @@ class _DecodePrefetcher:
             if self._exc is not None:
                 raise self._exc
             if done < self.workers:
-                item = self._outq.get()
+                with self.spans.wait("decode_wait", keep=False):
+                    item = self._outq.get()
                 if item is self._DONE:
                     done += 1
                     continue
@@ -297,11 +299,13 @@ class _PinnedPool:
     is handed out again only once they have completed, so no buffer is
     rewritten under a copy in flight and none is allocated per flush.
     Buffers come in power-of-two byte sizes; the pool keeps every buffer it
-    made until the engine goes, at most about one per copy in flight."""
+    made until the engine goes, at most about one per copy in flight; each
+    one made counts in `spans` as `pinned_new`."""
 
-    def __init__(self):
+    def __init__(self, spans: SpanRecorder):
         self._free: list = []            # (uint8 buffer, [events])
         self._lock = threading.Lock()
+        self._spans = spans
 
     def take(self, shape, dtype: torch.dtype):
         """(buffer, view of `shape` and `dtype` into it)."""
@@ -316,6 +320,7 @@ class _PinnedPool:
         if buf is None:
             with torch.inference_mode():
                 buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            self._spans.count("pinned_new")
         return buf, buf[:n].view(dtype).view(shape)
 
     def give(self, buf: torch.Tensor, events=()):
@@ -426,6 +431,14 @@ class ModelSet:
 
 
 class CallEngine:
+    #: keys of `timers` in every run: seconds per stage (the first eight;
+    #: in async mode dispatch, resolve and mmbuild run on their own threads
+    #: and overlap the rest) and per wait, then counts
+    SECONDS = ("decode", "sites", "pack", "flush", "dispatch", "resolve",
+               "mmbuild", "capture", "decode_wait", "flush_wait",
+               "resolve_wait", "write", "dispatch_idle", "resolve_idle",
+               "emit_idle")
+    COUNTS = ("slots", "batches", "pinned_new")
     #: allowed per-flush batch counts (see _decompose_batches)
     _BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
     #: the plane buffer ships to the card in this many segments
@@ -482,6 +495,8 @@ class CallEngine:
                     cfg, device=str(resolve_devices(devices)[0]))
                 devices = None
         self.cfg = cfg
+        #: where the engine's threads spend their time (engine/spans.py)
+        self.spans = SpanRecorder(cfg.trace)
         self.devices = self._device_list(cfg, devices)
         self.device = self.devices[0]
         if cfg.site_batch < len(self.devices):
@@ -509,7 +524,7 @@ class CallEngine:
             for d in self.devices]
         self.models = self.replicas[0]
         self.kmer = self.models.kmer
-        self.pinned = _PinnedPool()
+        self.pinned = _PinnedPool(self.spans)
         #: record sink of the async pipeline (run_call: the BAM writer)
         self.sink = None
         self._inflight = None
@@ -524,15 +539,9 @@ class CallEngine:
         self.carried = 0
         self.stats = {ctx: 0 for ctx in cfg.contexts}
         self.stats.update(reads=0, bases=0, called_reads=0)
-        # seconds per stage; in async mode dispatch, resolve and mmbuild
-        # run on their own threads and overlap the rest
-        self.timers = {"decode": 0.0, "sites": 0.0, "pack": 0.0,
-                       "flush": 0.0, "dispatch": 0.0, "resolve": 0.0,
-                       "mmbuild": 0.0, "capture": 0.0}
         #: the per-flush pipeline timeline (cfg.trace): (flush number,
         #: stage, time) events, printed by log_timers
-        self._trace_on = cfg.trace
-        self._trace_events: list = []
+        self._trace_events = self.spans.stamps
         self._queued = 0
         #: each device's persistent feature table (every flush featurizes
         #: into it: (8, cap) on the planned paths, (cap, 8) on slice and
@@ -545,7 +554,8 @@ class CallEngine:
         #: splits the batch axis)
         self._share_bounds = np.linspace(0, cfg.site_batch,
                                          len(self.devices) + 1).astype(int)
-        self._build_programs()
+        with self.spans.span("capture"):
+            self._build_programs()
         self._reset_buffer()
 
     def _build_programs(self):
@@ -558,9 +568,7 @@ class CallEngine:
         replica share its pool's memory, one batch's intermediates), each
         geometry warmed up once per entry: contexts whose models have the
         same layer shapes share it; on the planned paths strands do not
-        (the gather kernel has a variant per strand).  Seconds in the
-        `capture` timer."""
-        t0 = time.perf_counter()
+        (the gather kernel has a variant per strand)."""
         cfg = self.cfg
         cuda = self.device.type == "cuda"
         planned = cfg.gather_impl in _PLANNED_GATHERS
@@ -595,7 +603,6 @@ class CallEngine:
             # the pipeline's streams use them
             for d in dict.fromkeys(self.devices):
                 torch.cuda.synchronize(d)
-        self.timers["capture"] += time.perf_counter() - t0
 
     def _site_body(self, d: int, ctx: str, share: int):
         """Device d's slice/folded program body for one batch of `ctx`:
@@ -786,9 +793,8 @@ class CallEngine:
             return
         found = None
         if decoded is _UNSET:
-            t0 = time.perf_counter()
-            read = decode_read(rec)
-            self.timers["decode"] += time.perf_counter() - t0
+            with self.spans.span("decode", keep=False):
+                read = decode_read(rec)
         else:
             read, found = decoded
         if read is None:
@@ -815,36 +821,35 @@ class CallEngine:
             # fill-through flush: keep packing into the same buffer, whose
             # shipped segments the next flushes reuse
             self.flush(out, defer_tail=True)
-        t0 = time.perf_counter()
-        start = self._fill
-        end = start + read.size
-        self._planes[0, start:end] = read.codes
-        self._planes[1, start:end] = read.fi
-        self._planes[2, start:end] = read.fp
-        self._planes[3, start:end] = read.ri
-        self._planes[4, start:end] = read.rp
-        self._fill = end + self._gap
-        if planned:
-            # ship the segments this read finished, overlapping the copy
-            # with the host's work on the next reads
-            self._ship_segments(self._fill // self._seg_size)
-        self.timers["pack"] += time.perf_counter() - t0
+        with self.spans.span("pack", keep=False):
+            start = self._fill
+            end = start + read.size
+            self._planes[0, start:end] = read.codes
+            self._planes[1, start:end] = read.fi
+            self._planes[2, start:end] = read.fp
+            self._planes[3, start:end] = read.ri
+            self._planes[4, start:end] = read.rp
+            self._fill = end + self._gap
+            if planned:
+                # ship the segments this read finished, overlapping the
+                # copy with the host's work on the next reads
+                self._ship_segments(self._fill // self._seg_size)
 
-        t0 = time.perf_counter()
-        pend = _PendingRead(rec, fwd_seq=read.seq, start=start, extent=end)
-        if found is None:
-            found = sitefind.scan_all(read.seq)
-        for ctx in self.cfg.contexts:
-            offs, strands = found[ctx]
-            s = self._sites[ctx]
-            lo = sum(len(c) for c in s["centers"])
-            s["centers"].append(offs.astype(np.int32) + start)
-            s["strands"].append(strands)
-            s["rstart"].append(np.full(len(offs), start, np.int32))
-            s["rend"].append(np.full(len(offs), end, np.int32))
-            pend.site_slices[ctx] = (lo, lo + len(offs), offs, strands)
-            self.stats[ctx] += len(offs)
-        self.timers["sites"] += time.perf_counter() - t0
+        with self.spans.span("sites", keep=False):
+            pend = _PendingRead(rec, fwd_seq=read.seq, start=start,
+                                extent=end)
+            if found is None:
+                found = sitefind.scan_all(read.seq)
+            for ctx in self.cfg.contexts:
+                offs, strands = found[ctx]
+                s = self._sites[ctx]
+                lo = sum(len(c) for c in s["centers"])
+                s["centers"].append(offs.astype(np.int32) + start)
+                s["strands"].append(strands)
+                s["rstart"].append(np.full(len(offs), start, np.int32))
+                s["rend"].append(np.full(len(offs), end, np.int32))
+                pend.site_slices[ctx] = (lo, lo + len(offs), offs, strands)
+                self.stats[ctx] += len(offs)
         self.stats["called_reads"] += 1
         self._pending.append(pend)
 
@@ -900,51 +905,60 @@ class CallEngine:
         read clears a segment boundary the flush waits for the next read;
         a flush of the ramp does not wait, and ships the segment in
         progress instead (the JAX engine skipped its first ramp step
-        whenever that step was below one segment)."""
-        t0 = time.perf_counter()
-        planned = self.cfg.gather_impl in _PLANNED_GATHERS
-        carry = None
-        if (defer_tail and planned and self.cfg.segment_align
-                and self._fill > self._last_flush_fill):
-            carry = self._split_tail()
-            if carry is None and self.flushes >= len(self.cfg.flush_ramp):
-                return
-        work = None
-        if any(p.fwd_seq is not None for p in self._pending):
-            if planned:
-                self._ship_segments(self._fill // self._seg_size)
-                payload = list(self._segments)
-                k = len(payload)
-                if carry is None and k < self.H2D_SEGMENTS and \
-                        self._fill > k * self._seg_size:
-                    # the segment in progress, shipped for this flush only:
-                    # it ships again, whole, when its last read is packed
-                    a = k * self._seg_size
-                    payload.append(self._ship(
-                        self._planes[:, a:a + self._seg_size]))
-                work = ("segments", payload, self._sites)
-            else:
-                work = ("planes", self._planes[:, :self._fill], self._sites)
-            self.flushes += 1
-        pending = self._pending
-        self._reset_flush_state()
-        if carry is not None:
-            self._restore_tail(carry)
+        whenever that step was below one segment).
 
-        if self._async_active():
-            self._ensure_pipeline()
-            self._check_exc()
+        Flushes are numbered in order (`seq`); the `flush` span runs from
+        the cut to the hand-off, `flush_wait` inside it while the dispatch
+        queue is full.  A call that waits for the next read counts in no
+        span."""
+        planned = self.cfg.gather_impl in _PLANNED_GATHERS
+        with self.spans.span("flush") as span:
+            carry = None
+            if (defer_tail and planned and self.cfg.segment_align
+                    and self._fill > self._last_flush_fill):
+                carry = self._split_tail()
+                if carry is None and \
+                        self.flushes >= len(self.cfg.flush_ramp):
+                    span.drop()
+                    return
             seq, self._queued = self._queued, self._queued + 1
-            self._trace("flush", seq)
-            self._dispatch_q.put((seq, pending, work))
-            self.timers["flush"] += time.perf_counter() - t0
-            return
-        self.timers["flush"] += time.perf_counter() - t0
+            span.flush = seq
+            work = None
+            if any(p.fwd_seq is not None for p in self._pending):
+                if planned:
+                    self._ship_segments(self._fill // self._seg_size)
+                    payload = list(self._segments)
+                    k = len(payload)
+                    if carry is None and k < self.H2D_SEGMENTS and \
+                            self._fill > k * self._seg_size:
+                        # the segment in progress, shipped for this flush
+                        # only: it ships again, whole, when its last read
+                        # is packed
+                        a = k * self._seg_size
+                        payload.append(self._ship(
+                            self._planes[:, a:a + self._seg_size]))
+                    work = ("segments", payload, self._sites)
+                else:
+                    work = ("planes", self._planes[:, :self._fill],
+                            self._sites)
+                self.flushes += 1
+            pending = self._pending
+            self._reset_flush_state()
+            if carry is not None:
+                self._restore_tail(carry)
+
+            if self._async_active():
+                self._ensure_pipeline()
+                self._check_exc()
+                self.spans.stamp("flush", seq)
+                with self.spans.wait("flush_wait"):
+                    self._dispatch_q.put((seq, pending, work))
+                return
         futures = None
         if work is not None:
             with self._on_device():
-                futures = self._dispatch_work(work)
-        prev, self._inflight = self._inflight, (pending, futures)
+                futures = self._dispatch_work(work, seq)
+        prev, self._inflight = self._inflight, (seq, pending, futures)
         if prev is not None:
             self._emit(prev, out)
 
@@ -1015,41 +1029,42 @@ class CallEngine:
         self.carried += sum(p.fwd_seq is not None for p in pends)
 
     # -- dispatch ----------------------------------------------------------
-    def _dispatch_work(self, work):
-        """Featurize a flush's planes and launch every context's batches on
-        the current stream (inside _on_device); returns (futures, event):
-        the event marks the flush's results in host memory."""
-        t0 = time.perf_counter()
-        kind, payload, sites = work
-        cap = self.cfg.buffer_bases
-        hold: list = []
-        # every flush rewrites each device's persistent table, which its
-        # programs read, on the device's stream after the previous flush's
-        # batches that read it
-        for d in range(len(self.devices)):
-            with self._stream(d):
-                if kind == "segments":
-                    segs = []
-                    for t, ev in (seg[d] for seg in payload):
-                        if ev is not None:
-                            stream = torch.cuda.current_stream(
-                                self.devices[d])
-                            stream.wait_event(ev)
-                            t.record_stream(stream)
-                        segs.append(t)
-                    featurize_planes_t_seg(segs, cap, out=self._tables[d])
-                else:
-                    featurize_planes_seg(self._h2d(payload, hold, d), cap,
-                                         out=self._tables[d])
-        per_ctx = {ctx: self._call_context(ctx, sites[ctx], hold)
-                   for ctx in self.cfg.contexts}
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event(blocking=True)
-            done.record(torch.cuda.current_stream(self.device))
-            for buf in hold:
-                self.pinned.give(buf, done)
-        self.timers["dispatch"] += time.perf_counter() - t0
+    def _dispatch_work(self, work, flush: int):
+        """Featurize flush `flush`'s planes and launch every context's
+        batches on the current stream (inside _on_device); returns
+        (futures, event): the event marks the flush's results in host
+        memory."""
+        with self.spans.span("dispatch", flush):
+            kind, payload, sites = work
+            cap = self.cfg.buffer_bases
+            hold: list = []
+            # every flush rewrites each device's persistent table, which
+            # its programs read, on the device's stream after the previous
+            # flush's batches that read it
+            for d in range(len(self.devices)):
+                with self._stream(d):
+                    if kind == "segments":
+                        segs = []
+                        for t, ev in (seg[d] for seg in payload):
+                            if ev is not None:
+                                stream = torch.cuda.current_stream(
+                                    self.devices[d])
+                                stream.wait_event(ev)
+                                t.record_stream(stream)
+                            segs.append(t)
+                        featurize_planes_t_seg(segs, cap,
+                                               out=self._tables[d])
+                    else:
+                        featurize_planes_seg(self._h2d(payload, hold, d),
+                                             cap, out=self._tables[d])
+            per_ctx = {ctx: self._call_context(ctx, sites[ctx], hold)
+                       for ctx in self.cfg.contexts}
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event(blocking=True)
+                done.record(torch.cuda.current_stream(self.device))
+                for buf in hold:
+                    self.pinned.give(buf, done)
         return per_ctx, done
 
     def _call_context(self, ctx: str, s: dict, hold: list):
@@ -1129,7 +1144,8 @@ class CallEngine:
         its row into the program, a replay and the program's output into
         the flush's result, all on the device's stream.  Returns the
         (nb * ndev * site_batch,) u8 probs on the primary device, batch by
-        batch in device order."""
+        batch in device order.  Counts the programs' calls (`batches`) and
+        the site slots they compute, padding included (`slots`)."""
         nb, ndev = b128.shape[:2]
         sb = self.cfg.site_batch
         # a batch's plan row: its rels, then its bases (programs.plan_views)
@@ -1144,6 +1160,8 @@ class CallEngine:
                 for b in range(nb):
                     program(rows[b], res[b * sb:(b + 1) * sb])
                 per_dev.append([res])
+        self.spans.count("batches", nb * ndev)
+        self.spans.count("slots", nb * ndev * sb)
         per_dev = self._to_primary(per_dev)
         if ndev == 1:
             return per_dev[0][0]
@@ -1181,7 +1199,8 @@ class CallEngine:
         the device's program of `ctx`, a replay and the program's output
         into the flush's result, all on the device's stream.  The shares
         come back to the primary device as (nb * site_batch,) u8
-        probabilities in site order."""
+        probabilities in site order.  Counts `batches` and `slots` as
+        _launch_programs does."""
         bs = self.cfg.site_batch
         grids = [a.astype(np.int32).reshape(-1, bs) for a in arrays]
         nb = grids[0].shape[0]
@@ -1200,6 +1219,8 @@ class CallEngine:
                 for b in range(nb):
                     program(rows[b], res[b * share:(b + 1) * share])
                 per_dev.append([res])
+        self.spans.count("batches", nb * len(self.devices))
+        self.spans.count("slots", nb * bs)
         per_dev = self._to_primary(per_dev)
         if len(per_dev) == 1:
             return per_dev[0][0]
@@ -1208,72 +1229,74 @@ class CallEngine:
 
     # -- resolve and emit --------------------------------------------------
     def _emit(self, inflight, out: list):
-        pending, futures = inflight
-        self._build_emit(pending, self._resolve(futures), out)
+        seq, pending, futures = inflight
+        self._build_emit(pending, self._resolve(futures, seq), out, seq)
 
-    def _resolve(self, futures):
-        """Wait for a flush's device results; scatter each stream's slots
-        back to site order (padded slots duplicate a real site -> same
-        value), then unsort.  The pinned result buffers go back to the
-        pool once read."""
-        t0 = time.perf_counter()
-        probs = {ctx: np.empty(0, np.uint8) for ctx in self.cfg.contexts}
-        if futures is not None:
-            per_ctx, done = futures
-            if done is not None:
-                done.synchronize()
-            for ctx, (n, streams, order) in per_ctx.items():
-                if streams is None:
-                    continue
-                sorted_probs = np.empty(n, np.uint8)
-                for (buf, part), idx, sel, ng in streams:
-                    flat = part.numpy()
-                    m = n if sel is None else len(sel)
-                    if idx is None:
-                        sp = flat[:m]
+    def _resolve(self, futures, flush: int):
+        """Wait for flush `flush`'s device results (`resolve_wait`);
+        scatter each stream's slots back to site order (padded slots
+        duplicate a real site -> same value), then unsort.  The pinned
+        result buffers go back to the pool once read."""
+        with self.spans.span("resolve", flush):
+            probs = {ctx: np.empty(0, np.uint8)
+                     for ctx in self.cfg.contexts}
+            if futures is not None:
+                per_ctx, done = futures
+                if done is not None:
+                    with self.spans.wait("resolve_wait"):
+                        done.synchronize()
+                for ctx, (n, streams, order) in per_ctx.items():
+                    if streams is None:
+                        continue
+                    sorted_probs = np.empty(n, np.uint8)
+                    for (buf, part), idx, sel, ng in streams:
+                        flat = part.numpy()
+                        m = n if sel is None else len(sel)
+                        if idx is None:
+                            sp = flat[:m]
+                        else:
+                            sp = np.empty(m, np.uint8)
+                            sp[idx.ravel()] = flat[:ng * idx.shape[1]]
+                        if sel is None:
+                            sorted_probs[:] = sp
+                        else:
+                            sorted_probs[sel] = sp
+                        if buf is not None:
+                            self.pinned.give(buf)
+                    if order is None:
+                        probs[ctx] = sorted_probs
                     else:
-                        sp = np.empty(m, np.uint8)
-                        sp[idx.ravel()] = flat[:ng * idx.shape[1]]
-                    if sel is None:
-                        sorted_probs[:] = sp
-                    else:
-                        sorted_probs[sel] = sp
-                    if buf is not None:
-                        self.pinned.give(buf)
-                if order is None:
-                    probs[ctx] = sorted_probs
-                else:
-                    unsorted = np.empty(n, np.uint8)
-                    unsorted[order] = sorted_probs
-                    probs[ctx] = unsorted
-        self.timers["resolve"] += time.perf_counter() - t0
+                        unsorted = np.empty(n, np.uint8)
+                        unsorted[order] = sorted_probs
+                        probs[ctx] = unsorted
         return probs
 
-    def _build_emit(self, pending, probs, out: list):
-        """MM/ML tag construction + ordered record emission."""
-        t0 = time.perf_counter()
-        for pend in pending:
-            rec = pend.rec
-            if pend.fwd_seq is None:
+    def _build_emit(self, pending, probs, out: list, flush: int):
+        """Flush `flush`'s MM/ML tag construction + ordered record
+        emission."""
+        with self.spans.span("mmbuild", flush):
+            for pend in pending:
+                rec = pend.rec
+                if pend.fwd_seq is None:
+                    out.append(rec)
+                    continue
+                qoffs_all, strands_all, probs_all = [], [], []
+                for ctx, (lo, hi, offs,
+                          strands) in pend.site_slices.items():
+                    qoffs_all.append(offs)
+                    strands_all.append(strands)
+                    probs_all.append(probs[ctx][lo:hi])
+                qoffs = np.concatenate(qoffs_all)
+                strands = np.concatenate(strands_all)
+                pvals = np.concatenate(probs_all)
+                fwd_mask = strands == FWD
+                fq, fp = qoffs[fwd_mask], pvals[fwd_mask]
+                rq, rp = qoffs[~fwd_mask], pvals[~fwd_mask]
+                fo = np.argsort(fq, kind="stable")
+                ro = np.argsort(rq, kind="stable")
+                build_mod_tags(rec, pend.fwd_seq, fq[fo], fp[fo], rq[ro],
+                               rp[ro], keep_kinetics=self.cfg.keep_kinetics)
                 out.append(rec)
-                continue
-            qoffs_all, strands_all, probs_all = [], [], []
-            for ctx, (lo, hi, offs, strands) in pend.site_slices.items():
-                qoffs_all.append(offs)
-                strands_all.append(strands)
-                probs_all.append(probs[ctx][lo:hi])
-            qoffs = np.concatenate(qoffs_all)
-            strands = np.concatenate(strands_all)
-            pvals = np.concatenate(probs_all)
-            fwd_mask = strands == FWD
-            fq, fp = qoffs[fwd_mask], pvals[fwd_mask]
-            rq, rp = qoffs[~fwd_mask], pvals[~fwd_mask]
-            fo = np.argsort(fq, kind="stable")
-            ro = np.argsort(rq, kind="stable")
-            build_mod_tags(rec, pend.fwd_seq, fq[fo], fp[fo], rq[ro], rp[ro],
-                           keep_kinetics=self.cfg.keep_kinetics)
-            out.append(rec)
-        self.timers["mmbuild"] += time.perf_counter() - t0
 
     # -- async pipeline ----------------------------------------------------
     def _async_active(self) -> bool:
@@ -1305,58 +1328,65 @@ class CallEngine:
 
     def _dispatch_worker(self):
         """Stage 2: featurize + plan + launch on the compute stream."""
+        spans = self.spans
         with self._on_device():
             while True:
-                item = self._dispatch_q.get()
+                with spans.wait("dispatch_idle"):
+                    item = self._dispatch_q.get()
                 if item is None:
                     self._resolve_q.put(None)
                     return
                 seq, pending, work = item
                 futures = None
-                self._trace("dispatch0", seq)
+                spans.stamp("dispatch0", seq)
                 try:
                     if self._exc is None and work is not None:
-                        futures = self._dispatch_work(work)
+                        futures = self._dispatch_work(work, seq)
                 except BaseException as e:  # noqa: BLE001 - raised on the caller
                     self._fail(e)
-                self._trace("dispatch1", seq)
+                spans.stamp("dispatch1", seq)
                 self._resolve_q.put((seq, pending, futures))
 
     def _resolve_worker(self):
         """Stage 3: wait for the flush's event, unsort."""
+        spans = self.spans
         while True:
-            item = self._resolve_q.get()
+            with spans.wait("resolve_idle"):
+                item = self._resolve_q.get()
             if item is None:
                 self._emit_q.put(None)
                 return
             seq, pending, futures = item
             probs = None
-            self._trace("resolve0", seq)
+            spans.stamp("resolve0", seq)
             try:
                 if self._exc is None:
-                    probs = self._resolve(futures)
+                    probs = self._resolve(futures, seq)
             except BaseException as e:  # noqa: BLE001 - raised on the caller
                 self._fail(e)
-            self._trace("resolve1", seq)
+            spans.stamp("resolve1", seq)
             self._emit_q.put((seq, pending, probs))
 
     def _emit_worker(self):
-        """Stage 4: MM/ML build + the ordered record sink."""
+        """Stage 4: MM/ML build + the ordered record sink (`write`)."""
+        spans = self.spans
         while True:
-            item = self._emit_q.get()
+            with spans.wait("emit_idle"):
+                item = self._emit_q.get()
             if item is None:
                 return
             seq, pending, probs = item
-            self._trace("emit0", seq)
+            spans.stamp("emit0", seq)
             try:
                 if self._exc is None and probs is not None:
                     local: list = []
-                    self._build_emit(pending, probs, local)
-                    for rec in local:
-                        self.sink(rec)
+                    self._build_emit(pending, probs, local, seq)
+                    with spans.span("write", seq):
+                        for rec in local:
+                            self.sink(rec)
             except BaseException as e:  # noqa: BLE001 - raised on the caller
                 self._fail(e)
-            self._trace("emit1", seq)
+            spans.stamp("emit1", seq)
 
     def finalize(self, out: list):
         """Flush any packed reads and drain the pipeline (or resolve the
@@ -1395,15 +1425,20 @@ class CallEngine:
         self._programs = self._tables = None
         torch.cuda.empty_cache()
 
-    def _trace(self, stage: str, seq: int) -> None:
-        """Stamp one stage of flush `seq` (cfg.trace; async mode only)."""
-        if self._trace_on:
-            self._trace_events.append((seq, stage, time.perf_counter()))
+    @property
+    def timers(self) -> dict:
+        """The spans' totals, one flat dict: seconds per stage and wait
+        (SECONDS, and with cfg.trace `<name>_cpu` thread CPU seconds) and
+        the counts (COUNTS), each key of SECONDS and COUNTS present."""
+        out = {**dict.fromkeys(self.SECONDS, 0.0),
+               **dict.fromkeys(self.COUNTS, 0)}
+        out.update(sorted(self.spans.totals().items()))
+        return out
 
     def log_timers(self):
-        """The stage timers on stderr; with cfg.trace first one line per
-        flush, `[trace flush N] flush@t dispatch0@t ...`, in seconds from
-        the first event (the JAX engine's format)."""
+        """The timers on stderr; with cfg.trace first one line per flush,
+        `[trace flush N] flush@t dispatch0@t ...`, in seconds from the
+        first event (the JAX engine's format)."""
         if self._trace_events:
             t0 = min(t for _, _, t in self._trace_events)
             rows: dict = {}
@@ -1413,7 +1448,8 @@ class CallEngine:
                 print(f"[trace flush {seq}] " + " ".join(rows[seq]),
                       file=sys.stderr)
             self._trace_events.clear()
-        parts = ", ".join(f"{k}={v:.2f}s" for k, v in self.timers.items())
+        parts = ", ".join(f"{k}={v}" if isinstance(v, int) else
+                          f"{k}={v:.2f}s" for k, v in self.timers.items())
         print(f"[engine timers] {parts}", file=sys.stderr)
 
 
@@ -1454,11 +1490,21 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
         records = (rec for _, rec in sharded_read_stream(reader, shard))
         if n_workers > 0:
             prefetch = _DecodePrefetcher(records, cfg.min_read_size,
-                                         workers=n_workers)
+                                         engine.spans, workers=n_workers)
             pairs = iter(prefetch)
         else:
             pairs = ((rec, _UNSET) for rec in records)
         done: list[BamRecord] = []
+
+        def write_done():
+            # sync mode: the records a flush finished (async mode: none,
+            # the emit worker writes them)
+            if done:
+                with engine.spans.span("write"):
+                    for r in done:
+                        writer.write(r)
+                done.clear()
+
         next_log = cfg.read_batch_size
         batch_snap = dict(engine.stats)
         for rec, decoded in pairs:
@@ -1472,19 +1518,12 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
                 batch_snap = dict(engine.stats)
                 log("%10d reads processed", engine.stats["reads"])
                 next_log += cfg.read_batch_size
-            for r in done:
-                writer.write(r)
-            done.clear()
+            write_done()
         engine.finalize(done)
-        for r in done:
-            writer.write(r)
+        write_done()
     finally:
         if prefetch is not None:
             prefetch.close()
-            # worker seconds overlap the main thread; they are folded in
-            # so the timers still attribute decode and site-scan cost
-            engine.timers["decode"] += prefetch.t_decode
-            engine.timers["sites"] += prefetch.t_sites
         engine.close()
         writer.close()
         reader.close()
@@ -1496,6 +1535,9 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
     _print_stats("******** Final stats:", cfg.contexts, s)
     if cfg.stats_json:
         import json
+        # with trace on, "spans" holds the flush-level records on the
+        # perf_counter clock (engine/spans.py)
+        extra = {"spans": engine.spans.records()} if cfg.trace else {}
         with open(cfg.stats_json, "w") as f:
             json.dump({"stats": {k: int(v) for k, v in s.items()},
                        "timers": engine.timers,
@@ -1511,6 +1553,7 @@ def run_call(in_bam: str, out_bam: str, cfg: CallConfig,
                                   "device": str(engine.device),
                                   "devices": [str(d) for d in engine.devices],
                                   "shard": [shard.process_id,
-                                            shard.num_processes]}},
+                                            shard.num_processes]},
+                       **extra},
                       f, indent=1)
     return s
