@@ -15,7 +15,11 @@ Phases (any failure exits non-zero before the final line is printed):
     group_windows_t bit-exact and fused_forward within
     2e-3 logits and +-1 u8 at the call path's 8192 sites (K=11 (CpG) and
     K=13 (CHH) models, forward and reverse, main (clipped bases, padded
-    groups), greedy-split and odd-width plans); group_windows,
+    groups), greedy-split and odd-width plans); conv1d_relu for every
+    layer of the three shipped nets at 8192 sites, bn0 folded into the
+    first, each layer fed the plain version's output of the one before,
+    within CONV_RTOL of max |ref|, timed beside its FFMA bound and cuDNN's
+    conv1d + bias + ReLU; group_windows,
     window_slices and window_rows bit-exact at the microbenchmark's 16384
     sites over a (4 Mi, 8) table (greedy-split plans, starts at the last
     legal row, odd row counts, 3-channel and misaligned tables, spp 8 and
@@ -29,9 +33,12 @@ Phases (any failure exits non-zero before the final line is printed):
     run_call at the shipped models' full width, over ~200 reads x 15 kb
     (~0.9 M sites), once per gather_impl through the asynchronous pipeline
     (decode workers, segment-streamed planes, dispatch/resolve/emit
-    workers; "pallas": group_windows_t + cuDNN CNN; "fused": fused_forward;
-    "slice" and "folded": indexing gathers + cuDNN CNN, which launch no
-    hand kernel); then pallas and fused with --sync-emit (sites/s beside
+    workers; "pallas": group_windows_t + conv1d_relu CNN; "fused":
+    fused_forward; "slice" and "folded": indexing gathers + conv1d_relu
+    CNN), every run that takes the direct route launching conv1d_relu 8
+    times a program call (6 under conv_impl "auto", whose first and last
+    convs are products); then pallas and fused with --sync-emit (sites/s
+    beside
     the async run); pallas in bf16 (group_windows_t writing bf16
     windows); pallas on a forced schedule (256 Ki buffer, 48 Ki flushes,
     3 decode workers), which must roll buffers over, cut flushes at
@@ -39,8 +46,9 @@ Phases (any failure exits non-zero before the final line is printed):
     engine's `pinned_new`) than it has flushes, each of which takes at
     least two, so the engine's pool reuses them; pallas with CallConfig.conv_impl "im2col"
     (every conv one cuBLAS float32 product over unfolded columns) and
-    slice with "auto" (conv1 so); and the window-fetch microbenchmark
-    (scripts/microbench_torch_gather.py, every variant, 2 batches), which
+    slice with "auto" (the first and last convs so); and the window-fetch
+    microbenchmark (scripts/microbench_torch_gather.py, every variant, 2
+    batches), which
     launches group_windows, window_slices and group_windows_t;
  4. outputs held to the parity contract (MM/MN byte-equal, ML within +-1,
     at most 5% of ML bytes off): fused against pallas, slice against
@@ -60,7 +68,8 @@ Phases (any failure exits non-zero before the final line is printed):
     every path and for bf16 (bf16 within max 10, mean 0.2);
  5. scale-out and quantification on the card, each call run with the
     kernels' counts set to 0 just before it and read just after (pallas
-    runs must launch group_windows_t, slice runs no hand kernel):
+    runs must launch group_windows_t and conv1d_relu, slice runs
+    conv1d_relu alone):
     `call --data-parallel` on the one card (the single-device path),
     byte-equal to the pallas run, its sites/s beside it; the split over the
     device list ["cuda:0", "cuda:0"] (two replicas with their own segments,
@@ -118,15 +127,16 @@ Phases (any failure exits non-zero before the final line is printed):
     phases 3 and 5), each run with the counts and the peak device memory
     set to 0 just before it and read just after: every run byte-equal to
     phase 3's run of its path (the pallas split to phase 3's pallas, the
-    slice split to phase 5's), launching its kernel as often as the graph
-    runs of its path (126 on the smoke input; the split more, as its plans
-    pad to two devices; slice and folded none) and no other; per run its
+    slice split to phase 5's), launching its kernels as often as the graph
+    runs of its path (the gather 126 times on the smoke input, the split
+    more, as its plans pad to two devices; conv1d_relu 8 times a program
+    call) and no other; per run its
     sites/s, the
     engine's capture seconds (inside the run's wall) and its peak device
     memory, allocated and reserved; then the default async pallas and
     fused runs under torch.profiler (scripts/profile_torch_call.py's
     device_profile), whose idle share is printed, whose device time must
-    include the path's kernel, and whose device kernels of each name must
+    include the path's kernels, and whose device kernels of each name must
     number the wrapper's launches plus the programs' warm-ups
     (engine/programs.py warmup_launches): the profiler sees the kernels
     inside graphs one by one, so the counts are measured, not booked.
@@ -152,6 +162,10 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 #: an f32-accurate product on the tensor cores is three TF32 passes (3xTF32)
 F32_TENSOR_FLOPS = TF32_FLOPS / 3
+#: conv1d_relu against its plain version (cuDNN in float32, TF32 off):
+#: max |diff| at most this share of max |ref| per layer, as float32 sums of
+#: up to 384 products in another order than cuDNN's may differ
+CONV_RTOL = 1e-5
 #: base composition (A, C, G, T) of the synthetic reads: GC ~0.36, about
 #: 0.30 all-context candidate sites per base, a plant genome's density
 PLANT = (0.32, 0.18, 0.18, 0.32)
@@ -165,24 +179,25 @@ MICRO_ROWS = 1 << 22
 GATHER_IMPLS = ("pallas", "fused", "slice", "folded")
 #: the main-path runs of phase 3: label -> (CallConfig fields, the kernels
 #: the run must launch)
+PALLAS = ("group_windows_t", "conv1d_relu")
+CNN = ("conv1d_relu",)
 MAIN_RUNS = {
-    "pallas": (dict(gather_impl="pallas"), ("group_windows_t",)),
+    "pallas": (dict(gather_impl="pallas"), PALLAS),
     "fused": (dict(gather_impl="fused"), ("fused_forward",)),
-    "slice": (dict(gather_impl="slice"), ()),
-    "folded": (dict(gather_impl="folded"), ()),
-    "pallas-sync": (dict(gather_impl="pallas", async_emit=False),
-                    ("group_windows_t",)),
+    "slice": (dict(gather_impl="slice"), CNN),
+    "folded": (dict(gather_impl="folded"), CNN),
+    "pallas-sync": (dict(gather_impl="pallas", async_emit=False), PALLAS),
     "fused-sync": (dict(gather_impl="fused", async_emit=False),
                    ("fused_forward",)),
     "pallas-bf16": (dict(gather_impl="pallas", compute_dtype="bfloat16"),
-                    ("group_windows_t",)),
+                    PALLAS),
     "pallas-forced": (dict(gather_impl="pallas", buffer_bases=1 << 18,
-                           flush_bases=48 << 10, decode_workers=3),
-                      ("group_windows_t",)),
+                           flush_bases=48 << 10, decode_workers=3), PALLAS),
     "pallas-im2col": (dict(gather_impl="pallas", conv_impl="im2col"),
                       ("group_windows_t",)),
-    "slice-auto": (dict(gather_impl="slice", conv_impl="auto"), ()),
+    "slice-auto": (dict(gather_impl="slice", conv_impl="auto"), CNN),
 }
+
 #: reads per round-robin block of phase 5's shard runs: 200 reads make 4
 #: blocks, 2 per shard
 SHARD_BLOCK = 50
@@ -519,6 +534,84 @@ def phase_fused():
             "bound_by": "operations", "library_ms": library_ms}
 
 
+def phase_conv():
+    """conv1d_relu against its plain version for every layer of the three
+    shipped nets at SITE_BATCH sites (bn0 folded into the first), each
+    layer fed the plain version's output of the one before on real
+    windows, and timed beside its FFMA bound, the plain version and cuDNN;
+    returns the kernel's JSON row without `launches` (times: the CHH net,
+    the largest, one batch through its eight layers)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from hifimeth_tpu_torch.model.cnn import exact_float32, load_model_npz
+    from hifimeth_tpu_torch.ops.conv import (PAD, STRIDE, conv1d_relu,
+                                             conv1d_relu_plain)
+    from hifimeth_tpu_torch.ops.gather import group_windows_t_plain
+    exact_float32()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    n_cols = 1 << 20
+    table = feature_table(rng, n_cols, dev)
+    b, r = gather_plan(rng, SITE_BATCH, 401, n_cols - 602, n_cols, 1)
+    windows = group_windows_t_plain(table, torch.from_numpy(b).to(dev),
+                                    torch.from_numpy(r).to(dev), False, 401,
+                                    torch.float32)[:SITE_BATCH].contiguous()
+    worst = 0.0
+    totals = {}
+    for ctx in CONTEXTS:
+        model = load_model_npz(os.path.join(ROOT, "models", f"{ctx}.npz"),
+                               dev).requires_grad_(False)
+        h = windows
+        sums = np.zeros(4)
+        for i, conv in enumerate(model.convs):
+            args = (h, conv.weight, conv.bias, STRIDE, PAD)
+            if i == 0:
+                args += (model.bn0.scale, model.bn0.shift)
+            got = conv1d_relu(*args)
+            want = conv1d_relu_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            worst = max(worst, err / top)
+            if not err <= CONV_RTOL * top:
+                raise AssertionError(
+                    f"conv1d_relu {ctx} conv{i}: max |diff| {err} over max "
+                    f"|ref| {top}, more than {CONV_RTOL} of it")
+            cout, cin, k = conv.weight.shape
+            flops = 2 * got.numel() * cin * k
+            ms = cuda_ms(lambda: conv1d_relu(*args))
+            plain_ms = cuda_ms(lambda: conv1d_relu_plain(*args), iters=10)
+            lib_in = model.bn0(h) if i == 0 else h
+            library_ms = cuda_ms(lambda: F.conv1d(
+                lib_in, conv.weight, conv.bias, stride=STRIDE,
+                padding=PAD[0]).relu_(), iters=10)
+            bound_ms = flops / FP32_FLOPS * 1e3
+            sums += (ms, bound_ms, plain_ms, library_ms)
+            print(f"[kernels] conv1d_relu {ctx} conv{i} ({cin}->{cout}, K "
+                  f"{k}, {h.shape[2]}->{got.shape[2]}"
+                  f"{', bn0 folded' if i == 0 else ''}) at {h.shape[0]} "
+                  f"sites: {ms:.4f} ms, FFMA bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f}%), plain {plain_ms:.4f} ms, "
+                  f"cuDNN conv1d + bias + relu_ {library_ms:.4f} ms; max "
+                  f"|diff| {err:.3e} of max |ref| {top:.3e}; zeros "
+                  f"{(want == 0).float().mean().item():.3f}")
+            h = want
+        totals[ctx] = sums
+        print(f"[kernels] conv1d_relu {ctx}, eight layers a batch: "
+              f"{sums[0]:.4f} ms, FFMA bound {sums[1]:.4f} ms "
+              f"({100 * sums[1] / sums[0]:.1f}%), plain {sums[2]:.4f} ms, "
+              f"cuDNN {sums[3]:.4f} ms")
+    ms, bound_ms, plain_ms, library_ms = totals["CHH"]
+    return {"name": "conv1d_relu", "route": "cuda",
+            "source": "hifimeth_tpu_torch/ops/csrc/conv1d_relu.cu",
+            "replaces": "cuDNN conv1d + bias + ReLU (no TPU kernel)",
+            "max_rel_err": worst, "ms": ms, "bound_ms": bound_ms,
+            "bound_by": "FFMA", "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "net_ms": {c: t[0] for c, t in totals.items()}}
+
+
 def covered_rows(starts, n, n_rows, step=1):
     """Distinct rows of an n_rows table that windows of n rows taken every
     `step` rows from `starts` read."""
@@ -846,9 +939,10 @@ def compare(path_a, path_b, label, mode="contract"):
 def kernel_wrappers():
     """Every kernel wrapper of the port by kernel name; each carries its
     launch count in `.launches`."""
-    from hifimeth_tpu_torch.ops import fused, gather
+    from hifimeth_tpu_torch.ops import conv, fused, gather
     return {"group_windows_t": gather.group_windows_t,
             "fused_forward": fused.fused_forward,
+            "conv1d_relu": conv.conv1d_relu,
             "group_windows": gather.group_windows,
             "window_slices": gather.window_slices,
             "window_rows": gather.window_rows}
@@ -865,6 +959,17 @@ def read_launches():
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
+def direct_convs(conv_impl):
+    """conv1d_relu launches a program call (one forward of a net) under
+    `conv_impl`: the convs of a shipped net that take the direct route
+    (all eight; under "auto" all but those with Cin * K <= 256, the
+    first and the last)."""
+    from hifimeth_tpu_torch.model.cnn import load_params_npz, uses_im2col
+    convs = load_params_npz(os.path.join(ROOT, "models", "CpG.npz"))["convs"]
+    return sum(not uses_im2col(conv_impl, c["w"].shape[1], c["w"].shape[0])
+               for c in convs)
+
+
 def run_main(big, out, label, fields, td, devices=None):
     """One main-path run of `call` with CallConfig `fields` (and the
     engine's device list `devices`); every kernel's count is set to 0 just
@@ -872,7 +977,9 @@ def run_main(big, out, label, fields, td, devices=None):
     Returns the launch counts and the run's stats JSON, with its sites/s,
     its launches and its peak device memory (MiB allocated, reserved).
     On the planned paths the engine's `batches` count must equal the
-    launches of the path's kernel (one a program call)."""
+    launches of the path's kernel (one a program call), and on every path
+    that runs the convolution kernel its launches must be direct_convs of
+    its route a program call."""
     import gc
 
     import torch
@@ -906,6 +1013,12 @@ def run_main(big, out, label, fields, td, devices=None):
     if gathers and run["timers"]["batches"] != gathers:
         raise AssertionError(f"{label}: {run['timers']['batches']} batches "
                              f"counted, {gathers} kernel launches")
+    convs = launches["conv1d_relu"]
+    layers = direct_convs(fields.get("conv_impl", "direct"))
+    if convs and convs != layers * run["timers"]["batches"]:
+        raise AssertionError(f"{label}: {convs} conv1d_relu launches over "
+                             f"{run['timers']['batches']} batches, not "
+                             f"{layers} a batch")
     recs = read_tags(out)
     n_ml = sum(len(ml) for _, _, ml, _ in recs if ml is not None)
     if len(recs) != 200 or any(mm is None for _, mm, _, _ in recs):
@@ -1025,7 +1138,7 @@ def phase_scale_out(big, td, runs):
     # call --data-parallel on the one card: the single-device path
     got, run = run_main(big, out("dp"), "pallas-data-parallel",
                         dict(gather_impl="pallas", data_parallel=True), td)
-    check_launches("pallas-data-parallel", got, ("group_windows_t",))
+    check_launches("pallas-data-parallel", got, PALLAS)
     if run["config"]["devices"] != ["cuda:0"]:
         raise AssertionError(f"--data-parallel on one card ran over "
                              f"{run['config']['devices']}")
@@ -1033,7 +1146,7 @@ def phase_scale_out(big, td, runs):
     print(f"[scale-out] sites/s: pallas {runs['pallas']['sites_per_s']:.1f},"
           f" pallas --data-parallel (one card) {run['sites_per_s']:.1f}")
     # the split over two replicas on the one card
-    for impl, kernels in (("pallas", ("group_windows_t",)), ("slice", ())):
+    for impl, kernels in (("pallas", PALLAS), ("slice", CNN)):
         label = f"{impl}-split"
         got, run = run_main(big, out(label), label, dict(
             gather_impl=impl, data_parallel=True), td,
@@ -1057,7 +1170,7 @@ def phase_scale_out(big, td, runs):
                  shard=ShardSpec(pid, 2, batch_size=SHARD_BLOCK))
         torch.cuda.synchronize()
         got = read_launches()
-        check_launches(f"shard {pid}/2", got, ("group_windows_t",))
+        check_launches(f"shard {pid}/2", got, PALLAS)
         print(f"[scale-out] call shard {pid}/2 in "
               f"{time.perf_counter() - t0:.3f} s; launches {got}")
     merge_shard_bams(out("merged"), [sharded + ".shard0000",
@@ -1438,8 +1551,7 @@ def phase_lifecycle(td, card):
 
     # the trained model serves the held-out reads through both kernels
     outs = {}
-    for impl, kernel in (("pallas", "group_windows_t"),
-                         ("fused", "fused_forward")):
+    for impl, kernels in (("pallas", PALLAS), ("fused", ("fused_forward",))):
         outs[impl] = os.path.join(td, f"held.{impl}.bam")
         reset_launches()
         t0 = time.perf_counter()
@@ -1448,7 +1560,7 @@ def phase_lifecycle(td, card):
             gather_impl=impl, device="cuda"))
         torch.cuda.synchronize()
         got = read_launches()
-        check_launches(f"held-out {impl}", got, (kernel,))
+        check_launches(f"held-out {impl}", got, kernels)
         auc, n = held_out_auc(outs[impl], meth, held_pos)
         print(f"[lifecycle] call --gather-impl {impl} of the held-out reads "
               f"with the trained model on {card} in "
@@ -1507,16 +1619,16 @@ def phase_trace(big, td, runs):
     import io
 
     import numpy as np
-    kernels = {"pallas": "group_windows_t", "fused": "fused_forward"}
+    kernels = {"pallas": PALLAS, "fused": ("fused_forward",)}
     for workers in (-1, 0):
-        for impl, kernel in kernels.items():
+        for impl, wanted in kernels.items():
             base = impl
             if workers == 0:
                 base = f"{impl}-inline"
                 got, runs[base] = run_main(
                     big, os.path.join(td, f"big.{base}.bam"), base,
                     dict(gather_impl=impl, decode_workers=0), td)
-                check_launches(base, got, (kernel,))
+                check_launches(base, got, wanted)
                 same_records(os.path.join(td, f"big.{base}.bam"),
                              os.path.join(td, f"big.{impl}.bam"),
                              f"{base}-vs-{impl}")
@@ -1527,7 +1639,7 @@ def phase_trace(big, td, runs):
                                     label, dict(gather_impl=impl,
                                                 decode_workers=workers,
                                                 trace=True), td)
-            check_launches(label, got, (kernel,))
+            check_launches(label, got, wanted)
             same_records(os.path.join(td, f"big.{label}.bam"),
                          os.path.join(td, f"big.{impl}.bam"),
                          f"{label}-vs-{impl}")
@@ -1691,34 +1803,34 @@ def phase_reference_call(dev="cuda"):
 
 # -- phase 8: graphs on the card -----------------------------------------------
 
-#: phase 8's paths: label -> (CallConfig fields, the device list, the kernel
-#: the run must launch (None: no hand kernel), the run of phase 3 or 5 its
-#: records must equal, the turns' graphs settings).  bf16 and the splits
-#: run one eager turn: their graph turn is their run of phase 3 (bf16) or
-#: phase 5 (the splits), graphs on by default there
+#: phase 8's paths: label -> (CallConfig fields, the device list, the
+#: kernels the run must launch, the run of phase 3 or 5 its records must
+#: equal, the turns' graphs settings).  bf16 and the splits run one eager
+#: turn: their graph turn is their run of phase 3 (bf16) or phase 5 (the
+#: splits), graphs on by default there
 GRAPH_RUNS = {
-    "pallas": (dict(gather_impl="pallas"), None, "group_windows_t", "pallas",
+    "pallas": (dict(gather_impl="pallas"), None, PALLAS, "pallas",
                (False, True, True, False)),
-    "fused": (dict(gather_impl="fused"), None, "fused_forward", "fused",
+    "fused": (dict(gather_impl="fused"), None, ("fused_forward",), "fused",
               (False, True, True, False)),
     "pallas-bf16": (dict(gather_impl="pallas", compute_dtype="bfloat16"),
-                    None, "group_windows_t", "pallas-bf16", (False,)),
+                    None, PALLAS, "pallas-bf16", (False,)),
     "pallas-split": (dict(gather_impl="pallas", data_parallel=True),
-                     ["cuda:0", "cuda:0"], "group_windows_t", "pallas",
-                     (False,)),
-    "slice": (dict(gather_impl="slice"), None, None, "slice", (False, True)),
-    "folded": (dict(gather_impl="folded"), None, None, "folded",
+                     ["cuda:0", "cuda:0"], PALLAS, "pallas", (False,)),
+    "slice": (dict(gather_impl="slice"), None, CNN, "slice", (False, True)),
+    "folded": (dict(gather_impl="folded"), None, CNN, "folded",
                (False, True)),
     "slice-split": (dict(gather_impl="slice", data_parallel=True),
-                    ["cuda:0", "cuda:0"], None, "slice-split", (False,)),
+                    ["cuda:0", "cuda:0"], CNN, "slice-split", (False,)),
 }
-#: each profiled path's wrapper, its device_profile class and the names of
-#: the device kernels one launch of the wrapper runs (each once)
+#: each profiled path's wrappers, each with its device_profile class and
+#: the names of the device kernels one launch of it runs (each once)
 PROFILED = {
-    "pallas": ("group_windows_t", "gather kernel",
-               ("group_windows_kernel",)),
-    "fused": ("fused_forward", "fused kernel",
-              ("fused_head_kernel", "fused_mid_kernel", "fused_tail_kernel")),
+    "pallas": (("group_windows_t", "gather kernel", ("group_windows_kernel",)),
+               ("conv1d_relu", "convolution", ("conv1d_relu_kernel",))),
+    "fused": (("fused_forward", "fused kernel",
+               ("fused_head_kernel", "fused_mid_kernel",
+                "fused_tail_kernel")),),
 }
 
 
@@ -1735,17 +1847,15 @@ def phase_graphs(big, td, runs):
     import torch
     from profile_torch_call import device_profile
 
-    from hifimeth_tpu_torch.engine import programs
     from hifimeth_tpu_torch.engine.call import CallConfig, run_call
     t_phase = time.perf_counter()
-    for label, (fields, devices, kernel, ref, turns) in GRAPH_RUNS.items():
+    for label, (fields, devices, wanted, ref, turns) in GRAPH_RUNS.items():
         want = record_bytes(os.path.join(td, f"big.{ref}.bam"))
         phase = 5 if ref.endswith("-split") else 3
-        wanted = () if kernel is None else (kernel,)
         counts = set()
         if len(turns) == 1:
             graph_run = runs[label]
-            counts.add(graph_run["launches"][kernel] if kernel else 0)
+            counts.add(tuple(graph_run["launches"][k] for k in wanted))
             print_graph_turn(f"{label}-graphs", graph_run,
                              f"phase {5 if devices else 3}'s run")
         for turn, graphs in enumerate(turns):
@@ -1754,7 +1864,7 @@ def phase_graphs(big, td, runs):
             got, run = run_main(big, path, name, dict(fields, graphs=graphs),
                                 td, devices=devices)
             check_launches(name, got, wanted)
-            counts.add(got[kernel] if kernel else 0)
+            counts.add(tuple(got[k] for k in wanted))
             if record_bytes(path) != want:
                 raise AssertionError(f"{name}: records not byte-equal to "
                                      f"phase {phase}'s {ref} run")
@@ -1764,14 +1874,13 @@ def phase_graphs(big, td, runs):
         if len(counts) != 1:
             raise AssertionError(f"{label}: launch counts {sorted(counts)} "
                                  f"differ between graph and eager runs")
-    for impl, (kernel, cls, names) in PROFILED.items():
+    for impl, profiled in PROFILED.items():
         out = os.path.join(td, f"big.{impl}-profiled.bam")
         reset_launches()
         prof = device_profile(lambda: run_call(
             big, out, CallConfig(device="cuda", gather_impl=impl)))
         got = read_launches()
-        warm = programs.warmup_launches.get(kernel_wrappers()[kernel], 0)
-        check_launches(f"{impl}-profiled", got, (kernel,))
+        check_launches(f"{impl}-profiled", got, [k for k, _, _ in profiled])
         same_records(out, os.path.join(td, f"big.{impl}.bam"),
                      f"{impl}-profiled-vs-{impl}")
         print(f"[graphs {impl}-profiled] default async run with graphs "
@@ -1780,24 +1889,33 @@ def phase_graphs(big, td, runs):
               f"{prof['idle_share']:.4f}; device ms by class " + ", ".join(
                   f"{c} {ms:.1f}" for c, ms in sorted(
                       prof["ms_by_class"].items(), key=lambda kv: -kv[1])))
-        if prof["ms_by_class"].get(cls, 0.0) <= 0:
-            raise AssertionError(f"the profiler saw no {cls} in the {impl} "
-                                 f"run's graphs")
-        # the launch count is a measurement: the profiler's kernels of
-        # each name are the replays' launches plus the warm-ups'
-        for part in names:
-            seen = sum(n for k, n in prof["n_by_kernel"].items()
-                       if part in k)
-            print(f"[graphs {impl}-profiled] {part}: {seen} device kernels "
-                  f"= {got[kernel]} launches + {warm} warm-ups")
-            if seen != got[kernel] + warm:
-                raise AssertionError(
-                    f"{impl}-profiled: the profiler saw {seen} {part} "
-                    f"kernels, the counts say {got[kernel]} launches + "
-                    f"{warm} warm-ups: " + str({k: n for k, n in prof[
-                        "n_by_kernel"].items() if "kernel" in k}))
+        for kernel, cls, names in profiled:
+            check_profiled(impl, prof, got, kernel, cls, names)
     print(f"[phase 8] graphs against eager in "
           f"{time.perf_counter() - t_phase:.3f} s wall")
+
+
+def check_profiled(impl, prof, got, kernel, cls, names):
+    """Phase 8: the profiled run's device time holds the wrapper's class,
+    and its device kernels of each name number the wrapper's launches
+    plus the programs' warm-ups."""
+    from hifimeth_tpu_torch.engine import programs
+    warm = programs.warmup_launches.get(kernel_wrappers()[kernel], 0)
+    if prof["ms_by_class"].get(cls, 0.0) <= 0:
+        raise AssertionError(f"the profiler saw no {cls} in the {impl} "
+                             f"run's graphs")
+    # the launch count is a measurement: the profiler's kernels of each
+    # name are the replays' launches plus the warm-ups'
+    for part in names:
+        seen = sum(n for k, n in prof["n_by_kernel"].items() if part in k)
+        print(f"[graphs {impl}-profiled] {part}: {seen} device kernels = "
+              f"{got[kernel]} launches + {warm} warm-ups")
+        if seen != got[kernel] + warm:
+            raise AssertionError(
+                f"{impl}-profiled: the profiler saw {seen} {part} kernels, "
+                f"the counts say {got[kernel]} launches + {warm} warm-ups: "
+                + str({k: n for k, n in prof["n_by_kernel"].items()
+                       if "kernel" in k}))
 
 
 def phase_surface(big, td, runs):
@@ -1835,7 +1953,7 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    kernels = ("group_windows", "fused_forward", "row_windows")
+    kernels = build.KERNELS
     with ThreadPoolExecutor(len(kernels) + 2) as pool:
         k_futs = {k: pool.submit(build.kernel_library, k) for k in kernels}
         b_fut = pool.submit(build.bamcore_library)
@@ -1854,7 +1972,8 @@ def main() -> int:
             if "ptxas" in l or "spill" in l))
 
     # -- phase 2: kernels against their plain versions -------------------
-    rows = [phase_gather(), phase_fused(), *phase_row_windows()]
+    rows = [phase_gather(), phase_fused(), phase_conv(),
+            *phase_row_windows()]
 
     with tempfile.TemporaryDirectory() as td:
         small, big = os.path.join(td, "small.bam"), os.path.join(td, "big.bam")
@@ -1878,8 +1997,8 @@ def main() -> int:
                 if got[kernel] <= 0:
                     return fail(f"the {label} run launched {kernel} no time")
                 if label in GATHER_IMPLS:
-                    launches[kernel] = (got[kernel],
-                                        f"call --gather-impl {label}")
+                    launches.setdefault(kernel, (
+                        got[kernel], f"call --gather-impl {label}"))
             other = {k: v for k, v in got.items() if k not in want and v}
             if other:
                 return fail(f"the {label} run launched another kernel "

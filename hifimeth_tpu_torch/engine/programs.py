@@ -9,10 +9,11 @@ call_sites_fused, call_sites_batched and call_sites_grid are `jax.jit` +
 graph per batch: a `BatchProgram` holds one batch's body for one (replica,
 context, strand, path, compute dtype, convolution route) with static
 buffers, so that a batch costs its dispatch thread three enqueues (plan
-in, replay, result out) where the body itself is some fifty (the gather,
-bn0, eight convolutions with bias and ReLU, two linears and the u8
-conversion) on the pallas path, and some sixty on slice and folded (the
-indexing gather, its read-bounds mask and strand turn, then the same).
+in, replay, result out) where the body itself is some twenty-five (the
+gather, eight convolution kernels with bias and ReLU inside and bn0 in the
+first, two linears and the u8 conversion) on the pallas path, and some
+thirty-five on slice and folded (the indexing gather, its read-bounds
+mask and strand turn, then the same).
 
  - The plan: one int32 buffer.  On the planned paths (pallas, fused) it
    holds ngrp * GROUP + ngrp entries, the rels (ngrp, GROUP) first and
@@ -25,8 +26,8 @@ indexing gather, its read-bounds mask and strand turn, then the same).
    capture; the body writes its probabilities into it.
  - On the card (given a `GraphPool`) the body is captured on the pool's
    stream as a `torch.cuda.CUDAGraph` into the pool's memory, after one
-   eager warm-up run there (cuDNN picks its algorithms, the kernels load
-   and set their shared-memory attributes) unless the caller already
+   eager warm-up run there (the kernels load and set their shared-memory
+   attributes, cuBLAS sets up its handle) unless the caller already
    warmed a program of the same geometry (`warm=False`); replay()
    launches the graph on the current stream.  A capture or a replay that
    fails raises: nothing reruns the batch eagerly.
@@ -35,8 +36,9 @@ indexing gather, its read-bounds mask and strand turn, then the same).
    body: every op of the batch is launched eagerly.
 
 Launch accounting: each kernel wrapper counts its launches in `.launches`
-(ops/gather.py, ops/fused.py): the batches a run computed.  The capture
-launches nothing and its counts are taken back out; each replay of a graph
+(ops/gather.py, ops/fused.py, ops/conv.py): the batches a run computed
+(the convolution kernel: their layers).  The capture launches nothing
+and its counts are taken back out; each replay of a graph
 adds what the captured body launched.  The warm-ups do launch their
 kernels: their launches go to `warmup_launches` instead, so that a
 profile of a run holds `.launches` + `warmup_launches` kernels of each.
@@ -47,7 +49,7 @@ import contextlib
 
 import torch
 
-from ..ops import fused, gather
+from ..ops import conv, fused, gather
 from ..ops.gather import GROUP
 
 
@@ -58,8 +60,8 @@ warmup_launches: dict = {}
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper of the port that counts its launches."""
-    return (gather.group_windows_t, fused.fused_forward, gather.group_windows,
-            gather.window_slices, gather.window_rows)
+    return (gather.group_windows_t, fused.fused_forward, conv.conv1d_relu,
+            gather.group_windows, gather.window_slices, gather.window_rows)
 
 
 @contextlib.contextmanager

@@ -17,7 +17,8 @@ writes it; `load_reference_onnx` reads it from a reference ONNX file.
 Numerics: on a GPU the float32 path must not run in TF32, which keeps only
 about three decimal digits and would move the u8 probabilities by more than
 the +-1 the parity contract allows (docs/PARITY.md).  `exact_float32()`
-turns TF32 off for cuDNN convolutions and cuBLAS matrix products; the call
+turns TF32 off for cuDNN convolutions and cuBLAS matrix products (the
+direct route's kernel computes every product as a float32 FMA); the call
 engine applies it before it runs a model on the GPU.
 
 bfloat16 (`set_compute_dtype`, CLI --dtype bf16) follows the JAX package's
@@ -35,12 +36,15 @@ their bias, as in the JAX engine's compiled programs; JAX's eager
 dnamodnet_apply rounds them to bf16 first.
 
 Convolution routes (`set_conv_impl`, CallConfig.conv_impl), the JAX
-package's `dnamodnet_apply(conv_impl=)`: "direct" runs every conv as a
-cuDNN/ATen conv1d; "im2col" runs every conv as one matrix product, the
-padded input unfolded into K strided columns, (B*Lo, Cin*K) @ (Cin*K,
-Cout) plus the bias (the JAX package's _conv1d_im2col); "auto" takes
-im2col where Cin * K <= 256, which is conv1 of every shipped model.  On
-the card the product runs on cuBLAS in full float32 (TF32 off, as
+package's `dnamodnet_apply(conv_impl=)`: "direct" runs every conv, its bias
+and its ReLU as one hand-written kernel on the card (ops/conv.py
+`conv1d_relu`; bn0 folds into the first conv's kernel in float32) and as
+F.conv1d with the bias, then F.relu, on the CPU; "im2col" runs every conv
+as one matrix product, the padded input unfolded into K strided columns,
+(B*Lo, Cin*K) @ (Cin*K, Cout) plus the bias (the JAX package's
+_conv1d_im2col); "auto" takes im2col where Cin * K <= 256, which is the
+first conv (Cin * K 88 or 104) and the last (192) of every shipped model.
+On the card the product runs on cuBLAS in full float32 (TF32 off, as
 `exact_float32` sets it; the route refuses to run with TF32 on).
 """
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import conv1d_relu, conv1d_relu_plain
 from .onnx_import import load_onnx_graph
 
 
@@ -255,21 +260,19 @@ class _Conv(nn.Module):
         matrix, row c*K + k for channel c and tap k."""
         return weight.detach().reshape(weight.shape[0], -1).t().contiguous()
 
-    def forward(self, h: torch.Tensor,
-                weight: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, weight: torch.Tensor | None = None,
+                bn0: _ChannelAffine | None = None) -> torch.Tensor:
         """`weight`: the bf16-valued weight of DNAModNet's bf16 mode, in
         the route's layout ((Cin*K, Cout) for im2col); default the float32
-        one."""
+        one.  `bn0`: the input BatchNorm, applied to `h` first (on the
+        direct route the card's kernel folds it in)."""
         if self.im2col:
+            h = h if bn0 is None else bn0(h)
             return self._im2col(h, self._mat if weight is None else weight)
         w = self.weight if weight is None else weight
-        if self.lo == self.hi:
-            h = F.conv1d(h, w, self.bias, stride=self.stride,
-                         padding=self.lo)
-        else:
-            h = F.conv1d(F.pad(h, (self.lo, self.hi)), w, self.bias,
-                         stride=self.stride)
-        return F.relu(h)
+        affine = () if bn0 is None else (bn0.scale, bn0.shift)
+        conv = conv1d_relu if h.is_cuda else conv1d_relu_plain
+        return conv(h, w, self.bias, self.stride, (self.lo, self.hi), *affine)
 
     def _im2col(self, h: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
         """(B, Cin, L) -> (B, Cout, Lo): the padded input's K strided
@@ -348,8 +351,8 @@ class DNAModNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype == torch.float32:
-            h = self.bn0(x)
-            for conv in self.convs:
+            h = self.convs[0](x, bn0=self.bn0)
+            for conv in self.convs[1:]:
                 h = conv(h)
             h = F.relu(self.fc1(h.flatten(1)))
             return self.fc2(h)

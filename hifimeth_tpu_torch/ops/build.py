@@ -34,6 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 
+#: the CUDA sources of ops/csrc/, one kernel library each
+KERNELS = ("group_windows", "fused_forward", "row_windows", "conv1d_relu")
+
+
 class BuildError(RuntimeError):
     pass
 
