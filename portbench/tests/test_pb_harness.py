@@ -35,7 +35,8 @@ def run(name, shrink, cpu_call, trace=False, devices=None, n_reads=3,
     return result, dict((k, v) for k, v, _ in numbers)
 
 
-@pytest.mark.parametrize("name", ["3ctx-plant-hifi", "cpg-human-hifi"])
+@pytest.mark.parametrize("name", ["3ctx-plant-hifi", "3ctx-plant-noamp",
+                                  "cpg-human-hifi"])
 def test_sound_run_is_correct(name, shrink, cpu_call):
     result, numbers = run(name, shrink, cpu_call)
     assert result["correct"] and result["failed"] == 0
