@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (hifimeth_tpu_torch) on one GPU.
+"""Smoke test of the PyTorch/CUDA port (hifimeth_tpu_torch) on one GPU,
+and on four where the host has them.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -70,8 +71,9 @@ Phases (any failure exits non-zero before the final line is printed):
     kernels' counts set to 0 just before it and read just after (pallas
     runs must launch group_windows_t and conv1d_relu, slice runs
     conv1d_relu alone):
-    `call --data-parallel` on the one card (the single-device path),
-    byte-equal to the pallas run, its sites/s beside it; the split over the
+    `call --data-parallel` on one card (the single-device path: the
+    card found alone on a one-card host, ["cuda:0"] named on a host with
+    more), byte-equal to the pallas run, its sites/s beside it; the split over the
     device list ["cuda:0", "cuda:0"] (two replicas with their own segments,
     tables and streams, sharing the card's one read-only model set,
     ModelSet.cached) for pallas (byte-equal to one device)
@@ -140,7 +142,19 @@ Phases (any failure exits non-zero before the final line is printed):
     number the wrapper's launches plus the programs' warm-ups
     (engine/programs.py warmup_launches): the profiler sees the kernels
     inside graphs one by one, so the counts are measured, not booked.
-    The phase prints its wall seconds.
+    The phase prints its wall seconds;
+ 9. `call --data-parallel` over four distinct cards, ["cuda:0", "cuda:1",
+    "cuda:2", "cuda:3"], where torch.cuda.device_count() is at least 4
+    (skipped with a line saying so elsewhere): pallas byte-equal to phase
+    3's one-card run, slice within the parity contract of its one-card
+    run, each launching its kernels and no other; the engine's exchange
+    counters show the peer copies back to cuda:0 were made (`peer_bytes`
+    three quarters of `slots`: each card's u8 results but the first's)
+    and the planes were shipped (`ship_bytes`); the same pallas split over
+    ["cuda:0"] * 4 (one card four times) byte-equal, with `peer_bytes` 0.
+    Each run prints its sites/s beside the one-card run's, its
+    `to_primary` seconds and its counters; the phase prints its wall
+    seconds.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  window_rows lies on no path of the
 repository: its `launches` are its phase-2 launches.
@@ -198,6 +212,8 @@ MAIN_RUNS = {
     "slice-auto": (dict(gather_impl="slice", conv_impl="auto"), CNN),
 }
 
+#: phase 9's device list: four distinct cards of one host
+CARDS = ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
 #: reads per round-robin block of phase 5's shard runs: 200 reads make 4
 #: blocks, 2 per shard
 SHARD_BLOCK = 50
@@ -1135,9 +1151,12 @@ def phase_scale_out(big, td, runs):
     def out(name):
         return os.path.join(td, f"big.{name}.bam")
 
-    # call --data-parallel on the one card: the single-device path
+    # call --data-parallel on one card: the single-device path (found
+    # alone where the host has one card, named where it has more)
+    one = None if torch.cuda.device_count() == 1 else ["cuda:0"]
     got, run = run_main(big, out("dp"), "pallas-data-parallel",
-                        dict(gather_impl="pallas", data_parallel=True), td)
+                        dict(gather_impl="pallas", data_parallel=True), td,
+                        devices=one)
     check_launches("pallas-data-parallel", got, PALLAS)
     if run["config"]["devices"] != ["cuda:0"]:
         raise AssertionError(f"--data-parallel on one card ran over "
@@ -1928,6 +1947,51 @@ def phase_surface(big, td, runs):
           f"{time.perf_counter() - t_phase:.3f} s wall")
 
 
+def phase_cards(big, td, runs):
+    """Phase 9 (see the module notes); `runs` holds phase 3's stats."""
+    import torch
+    n_cards = torch.cuda.device_count()
+    if n_cards < len(CARDS):
+        print(f"[phase 9] {n_cards} card(s): the split over four distinct "
+              f"cards needs {len(CARDS)}, skipped")
+        return
+    t_phase = time.perf_counter()
+
+    def out(name):
+        return os.path.join(td, f"big.{name}.bam")
+
+    for label, impl, kernels, devices in (
+            ("pallas-4cards", "pallas", PALLAS, CARDS),
+            ("pallas-4x-cuda0", "pallas", PALLAS, ["cuda:0"] * 4),
+            ("slice-4cards", "slice", CNN, CARDS)):
+        got, run = run_main(big, out(label), label, dict(
+            gather_impl=impl, data_parallel=True), td, devices=devices)
+        check_launches(label, got, kernels)
+        if run["config"]["devices"] != devices:
+            raise AssertionError(f"{label} ran over "
+                                 f"{run['config']['devices']}")
+        t = run["timers"]
+        peer, ship = t.get("peer_bytes"), t.get("ship_bytes")
+        print(f"[cards {label}] sites/s {run['sites_per_s']:.1f} (one card "
+              f"{runs[impl]['sites_per_s']:.1f}); to_primary "
+              f"{t.get('to_primary')} s, peer_bytes {peer}, ship_bytes "
+              f"{ship}, slots {t['slots']}")
+        if "to_primary" not in t or not ship:
+            raise AssertionError(f"{label}: no exchange span or no plane "
+                                 f"bytes shipped: {t}")
+        want = 3 * t["slots"] // 4 if devices == CARDS else 0
+        if peer != want:
+            raise AssertionError(f"{label}: peer_bytes {peer}, expected "
+                                 f"{want} (the cross-card branch of "
+                                 f"_to_primary)")
+        if impl == "pallas":
+            same_records(out(label), out("pallas"), f"{label}-vs-pallas")
+        else:
+            compare(out(label), out("slice"), f"{label}-vs-slice")
+    print(f"[phase 9] four cards in {time.perf_counter() - t_phase:.3f} s "
+          f"wall")
+
+
 def main() -> int:
     t_smoke = time.perf_counter()
     import torch
@@ -2068,12 +2132,15 @@ def main() -> int:
         # -- phase 8: graphs against eager ---------------------------------
         phase_graphs(big, td, runs)
 
+        # -- phase 9: four cards -------------------------------------------
+        phase_cards(big, td, runs)
+
     for row in rows:
         if row["name"] in launches:
             row["launches"], row["path"] = launches[row["name"]]
     if any(row["launches"] <= 0 for row in rows):
         return fail(f"a kernel was launched no time: {rows}")
-    print(f"[smoke] phases 1-8 in {time.perf_counter() - t_smoke:.3f} s "
+    print(f"[smoke] phases 1-9 in {time.perf_counter() - t_smoke:.3f} s "
           f"wall")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

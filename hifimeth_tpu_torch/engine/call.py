@@ -689,7 +689,10 @@ class CallEngine:
         """A (5, seg) plane piece to every device: on the card through one
         pinned staging buffer and each device's copy stream, giving
         [(tensor, the copy's event)] per device; on the CPU a copy per
-        device, [(tensor, None)]."""
+        device, [(tensor, None)].  Over a device list the bytes shipped,
+        summed over the devices, count as `ship_bytes`."""
+        if len(self.devices) > 1:
+            self.spans.count("ship_bytes", piece.nbytes * len(self.devices))
         if self.device.type != "cuda":
             return [(torch.from_numpy(piece.copy()), None)
                     for _ in self.devices]
@@ -720,15 +723,20 @@ class CallEngine:
         return host.to(self.devices[d], non_blocking=True)
 
     def _to_primary(self, per_dev: list) -> list:
-        """per_dev[d]: device d's result tensors, made on its stream ->
-        the same results on the primary device, ready on the current
-        (primary) stream.  A replica on the primary's own device is waited
-        for by event; another card's results are copied on that card's
-        stream, which PyTorch orders with the primary stream."""
-        if len(per_dev) == 1 or self.device.type != "cuda":
+        """per_dev[d]: device d's result tensors, made on its stream, over a
+        device list -> the same results on the primary device, ready on the
+        current (primary) stream.  A replica on the primary's own device is
+        waited for by event; another card's results are copied on that
+        card's stream (PyTorch's cross-device copy_: the source stream
+        first waits for the primary stream, where the copy's target is
+        allocated, and the primary stream then waits for the copy), and
+        their bytes count as `peer_bytes`.  The CPU's results stay."""
+        if self.device.type != "cuda":
+            self.spans.count("peer_bytes", 0)
             return per_dev
         cur = torch.cuda.current_stream(self.device)
         out = [per_dev[0]]
+        peer = 0
         for d in range(1, len(per_dev)):
             if self.devices[d] == self.device:
                 ev = torch.cuda.Event()
@@ -741,6 +749,8 @@ class CallEngine:
                 with self._stream(d):
                     out.append([t.to(self.device, non_blocking=True)
                                 for t in per_dev[d]])
+                peer += sum(t.nbytes for t in per_dev[d])
+        self.spans.count("peer_bytes", peer)
         return out
 
     def _to_host(self, probs: torch.Tensor):
@@ -1055,6 +1065,8 @@ class CallEngine:
                         featurize_planes_t_seg(segs, cap,
                                                out=self._tables[d])
                     else:
+                        if len(self.devices) > 1:
+                            self.spans.count("ship_bytes", payload.nbytes)
                         featurize_planes_seg(self._h2d(payload, hold, d),
                                              cap, out=self._tables[d])
             per_ctx = {ctx: self._call_context(ctx, sites[ctx], hold)
@@ -1162,11 +1174,12 @@ class CallEngine:
                 per_dev.append([res])
         self.spans.count("batches", nb * ndev)
         self.spans.count("slots", nb * ndev * sb)
-        per_dev = self._to_primary(per_dev)
         if ndev == 1:
             return per_dev[0][0]
-        return torch.stack([p[0].view(nb, sb) for p in per_dev],
-                           1).reshape(-1)
+        with self.spans.span("to_primary"):
+            per_dev = self._to_primary(per_dev)
+            return torch.stack([p[0].view(nb, sb) for p in per_dev],
+                               1).reshape(-1)
 
     def _call_context_batched(self, ctx: str, s: dict, centers: np.ndarray,
                               hold: list):
@@ -1221,11 +1234,12 @@ class CallEngine:
                 per_dev.append([res])
         self.spans.count("batches", nb * len(self.devices))
         self.spans.count("slots", nb * bs)
-        per_dev = self._to_primary(per_dev)
         if len(per_dev) == 1:
             return per_dev[0][0]
-        return torch.cat([p[0].view(nb, -1) for p in per_dev],
-                         dim=1).reshape(-1)
+        with self.spans.span("to_primary"):
+            per_dev = self._to_primary(per_dev)
+            return torch.cat([p[0].view(nb, -1) for p in per_dev],
+                             dim=1).reshape(-1)
 
     # -- resolve and emit --------------------------------------------------
     def _emit(self, inflight, out: list):
@@ -1429,7 +1443,9 @@ class CallEngine:
     def timers(self) -> dict:
         """The spans' totals, one flat dict: seconds per stage and wait
         (SECONDS, and with cfg.trace `<name>_cpu` thread CPU seconds) and
-        the counts (COUNTS), each key of SECONDS and COUNTS present."""
+        the counts (COUNTS), each key of SECONDS and COUNTS present; over a
+        device list also the exchange's `to_primary` seconds and its
+        `peer_bytes` and `ship_bytes` counts."""
         out = {**dict.fromkeys(self.SECONDS, 0.0),
                **dict.fromkeys(self.COUNTS, 0)}
         out.update(sorted(self.spans.totals().items()))
