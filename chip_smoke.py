@@ -995,7 +995,8 @@ def run_main(big, out, label, fields, td, devices=None):
     On the planned paths the engine's `batches` count must equal the
     launches of the path's kernel (one a program call), and on every path
     that runs the convolution kernel its launches must be direct_convs of
-    its route a program call."""
+    its route a program call.  On every path the flush-wide MM/ML builder
+    must have made every called read's tags, in one call a flush."""
     import gc
 
     import torch
@@ -1035,6 +1036,14 @@ def run_main(big, out, label, fields, td, devices=None):
         raise AssertionError(f"{label}: {convs} conv1d_relu launches over "
                              f"{run['timers']['batches']} batches, not "
                              f"{layers} a batch")
+    timers = run["timers"]
+    if (timers["mmbuild_native"] != stats["called_reads"]
+            or timers["mmbuild_calls"] != run["schedule"]["flushes"]):
+        raise AssertionError(
+            f"{label}: the flush-wide MM/ML builder made the tags of "
+            f"{timers['mmbuild_native']} of {stats['called_reads']} called "
+            f"reads in {timers['mmbuild_calls']} calls over "
+            f"{run['schedule']['flushes']} flushes")
     recs = read_tags(out)
     n_ml = sum(len(ml) for _, _, ml, _ in recs if ml is not None)
     if len(recs) != 200 or any(mm is None for _, mm, _, _ in recs):
@@ -2018,17 +2027,21 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     kernels = build.KERNELS
-    with ThreadPoolExecutor(len(kernels) + 2) as pool:
+    with ThreadPoolExecutor(len(kernels) + 3) as pool:
         k_futs = {k: pool.submit(build.kernel_library, k) for k in kernels}
         b_fut = pool.submit(build.bamcore_library)
+        m_fut = pool.submit(build.mmbuild_library)
         p_fut = pool.submit(probe_window_rows.build)
         libs = {k: f.result() for k, f in k_futs.items()}
         bamcore_lib = b_fut.result()
+        mmbuild_lib = m_fut.result()
         p_fut.result()
     if bamcore_lib is None:
         return fail("libbamcore did not build")
-    print(f"[build] {len(kernels)} kernel libraries + libbamcore + the DRAM "
-          f"probe in "
+    if mmbuild_lib is None:
+        return fail("libmmbuild did not build")
+    print(f"[build] {len(kernels)} kernel libraries + libbamcore + "
+          f"libmmbuild + the DRAM probe in "
           f"{time.perf_counter() - t0:.2f} s")
     for k, lib in libs.items():
         print(f"[build {k}] " + f"\n[build {k}] ".join(

@@ -37,7 +37,9 @@ The pipeline is the JAX engine's (hifimeth_tpu/engine/call.py):
     there), built with the engine and, with `graphs` on the card,
     replayed as a CUDA graph;
  4. resolve worker: wait for that event, scatter and unsort the probs;
- 5. emit worker: MM/ML build and the ordered BAM write (`sink`).
+ 5. emit worker: MM/ML build, one native call for the whole flush
+    (ops/csrc/mmbuild.cpp, without the interpreter lock), and the ordered
+    BAM write (`sink`).
 Each queue holds at most `queue_depth` flushes.  The first worker exception
 stops the pipeline's work and is raised on the caller's thread.  With
 `async_emit` off (CLI --sync-emit), or without a sink, stages 3-5 run on the
@@ -54,13 +56,14 @@ blocks.
 Every stage records into the engine's `spans` (engine/spans.py): its
 seconds, the seconds it blocks (`decode_wait`, `flush_wait`,
 `resolve_wait`, the workers' `*_idle`) and counts (`slots`, `batches`,
-`pinned_new`), read as `timers` and written to `--stats-json`.  With
-`trace` (CLI: HIFIMETH_TRACE set, as in the JAX package) each span also
-takes its thread's CPU seconds (`<name>_cpu`) and the flush-level spans
-leave records (`--stats-json` `spans`); the async pipeline stamps seven
-events per flush, `flush` (handed to the dispatch queue), `dispatch0/1`,
-`resolve0/1` and `emit0/1` (around each worker's work), and log_timers
-prints one `[trace flush N]` line per flush.
+`pinned_new`, `mmbuild_native`, `mmbuild_calls`), read as `timers` and
+written to `--stats-json`.  With `trace` (CLI: HIFIMETH_TRACE set, as in
+the JAX package) each span also takes its thread's CPU seconds
+(`<name>_cpu`) and the flush-level spans leave records (`--stats-json`
+`spans`); the async pipeline stamps seven events per flush, `flush`
+(handed to the dispatch queue), `dispatch0/1`, `resolve0/1` and `emit0/1`
+(around each worker's work), and log_timers prints one `[trace flush N]`
+line per flush.
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ from ..features.windows import (call_sites_group, call_sites_step,
                                 fold_table)
 from ..io import native
 from ..io.bam import BamReader, BamRecord, BamWriter
-from ..io.mmtags import build_mod_tags
+from ..io.mmtags import build_mod_tags, set_mod_tags, strip_mod_tags
 from ..model.cnn import CONV_IMPLS, exact_float32, load_model_npz
 from ..ops.fused import KMER as FUSED_KMER
 from ..ops.fused import call_sites_fused, prepare_fused_params
@@ -438,7 +441,8 @@ class CallEngine:
                "mmbuild", "capture", "decode_wait", "flush_wait",
                "resolve_wait", "write", "dispatch_idle", "resolve_idle",
                "emit_idle")
-    COUNTS = ("slots", "batches", "pinned_new")
+    COUNTS = ("slots", "batches", "pinned_new", "mmbuild_native",
+              "mmbuild_calls")
     #: allowed per-flush batch counts (see _decompose_batches)
     _BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
     #: the plane buffer ships to the card in this many segments
@@ -1287,30 +1291,73 @@ class CallEngine:
 
     def _build_emit(self, pending, probs, out: list, flush: int):
         """Flush `flush`'s MM/ML tag construction + ordered record
-        emission."""
+        emission: one native call builds every called read's tags
+        (`_flush_tags`), or, where that builder is unavailable, each read
+        builds its own (`_read_tags`).  Both give the same bytes."""
         with self.spans.span("mmbuild", flush):
-            for pend in pending:
-                rec = pend.rec
-                if pend.fwd_seq is None:
-                    out.append(rec)
-                    continue
-                qoffs_all, strands_all, probs_all = [], [], []
-                for ctx, (lo, hi, offs,
-                          strands) in pend.site_slices.items():
-                    qoffs_all.append(offs)
-                    strands_all.append(strands)
-                    probs_all.append(probs[ctx][lo:hi])
-                qoffs = np.concatenate(qoffs_all)
-                strands = np.concatenate(strands_all)
-                pvals = np.concatenate(probs_all)
-                fwd_mask = strands == FWD
-                fq, fp = qoffs[fwd_mask], pvals[fwd_mask]
-                rq, rp = qoffs[~fwd_mask], pvals[~fwd_mask]
-                fo = np.argsort(fq, kind="stable")
-                ro = np.argsort(rq, kind="stable")
-                build_mod_tags(rec, pend.fwd_seq, fq[fo], fp[fo], rq[ro],
-                               rp[ro], keep_kinetics=self.cfg.keep_kinetics)
-                out.append(rec)
+            called = [p for p in pending if p.fwd_seq is not None]
+            tags = self._flush_tags(called, probs) if called else None
+            if tags is None:
+                for pend in called:
+                    self._read_tags(pend, probs)
+            else:
+                for pend, (mm, ml) in zip(called, tags):
+                    strip_mod_tags(pend.rec, self.cfg.keep_kinetics)
+                    if mm is not None:
+                        set_mod_tags(pend.rec, mm, ml)
+            out.extend(pend.rec for pend in pending)
+
+    def _flush_tags(self, called: list, probs: dict):
+        """Every called read's (MM text, ML bytes) in one native call
+        (io/native.py `mm_flush`), (None, None) for a read without sites;
+        None if the builder is unavailable.  Counts the reads
+        (`mmbuild_native`) and the calls (`mmbuild_calls`)."""
+        entries = [(ctx, sl) for p in called
+                   for ctx, sl in p.site_slices.items()]
+        base, at = {}, 0
+        for ctx, pv in probs.items():
+            base[ctx] = at
+            at += len(pv)
+        n_ctx = len(entries) // len(called)
+        counts = np.array([hi - lo for _, (lo, hi, _, _) in entries],
+                          np.int64).reshape(len(called), n_ctx)
+        prob_at = np.array([base[ctx] + lo for ctx, (lo, _, _, _) in entries],
+                           np.int64).reshape(len(called), n_ctx)
+        seq_off = np.zeros(len(called) + 1, np.int64)
+        np.cumsum([len(p.fwd_seq) for p in called], out=seq_off[1:])
+        built = native.mm_flush(
+            np.concatenate([p.fwd_seq for p in called]), seq_off,
+            np.concatenate([sl[2] for _, sl in entries], dtype=np.int64),
+            np.concatenate([sl[3] for _, sl in entries], dtype=np.uint8),
+            counts, prob_at, np.concatenate(list(probs.values())))
+        if built is None:
+            return None
+        self.spans.count("mmbuild_calls")
+        self.spans.count("mmbuild_native", len(called))
+        mm, mm_off, ml, ml_off = built
+        return [(mm[mm_off[i]:mm_off[i + 1]].decode(),
+                 ml[ml_off[i]:ml_off[i + 1]])
+                if ml_off[i + 1] > ml_off[i] else (None, None)
+                for i in range(len(called))]
+
+    def _read_tags(self, pend: _PendingRead, probs: dict):
+        """One read's MM/ML/MN (build_mod_tags): the fallback of
+        `_flush_tags`."""
+        qoffs_all, strands_all, probs_all = [], [], []
+        for ctx, (lo, hi, offs, strands) in pend.site_slices.items():
+            qoffs_all.append(offs)
+            strands_all.append(strands)
+            probs_all.append(probs[ctx][lo:hi])
+        qoffs = np.concatenate(qoffs_all)
+        strands = np.concatenate(strands_all)
+        pvals = np.concatenate(probs_all)
+        fwd_mask = strands == FWD
+        fq, fp = qoffs[fwd_mask], pvals[fwd_mask]
+        rq, rp = qoffs[~fwd_mask], pvals[~fwd_mask]
+        fo = np.argsort(fq, kind="stable")
+        ro = np.argsort(rq, kind="stable")
+        build_mod_tags(pend.rec, pend.fwd_seq, fq[fo], fp[fo], rq[ro],
+                       rp[ro], keep_kinetics=self.cfg.keep_kinetics)
 
     # -- async pipeline ----------------------------------------------------
     def _async_active(self) -> bool:

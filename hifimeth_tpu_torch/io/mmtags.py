@@ -44,6 +44,24 @@ def _delta_string(qoffs: np.ndarray, base_positions_cum: np.ndarray) -> str:
     return (",%d" * len(deltas)) % tuple(deltas.tolist())
 
 
+def strip_mod_tags(rec: BamRecord, keep_kinetics: bool = False) -> None:
+    """Drop the kinetics tags (unless keep_kinetics) and any MM/ML from a
+    record about to be called (build_mod_bam.cpp:125-143)."""
+    if not keep_kinetics:
+        for t in KINETICS_TAGS:
+            rec.del_tag(t)
+    rec.del_tag("ML")
+    rec.del_tag("MM")
+
+
+def set_mod_tags(rec: BamRecord, mm: str, ml: np.ndarray) -> None:
+    """Set MM, ML and MN, in that order, on a record strip_mod_tags has
+    stripped; `ml` holds the u8 probabilities."""
+    rec.set_tag("MM", "Z", mm)
+    rec.set_tag("ML", "B", ("C", ml))
+    rec.set_tag("MN", choose_int_type(rec.l_seq), rec.l_seq)
+
+
 def build_mod_tags(rec: BamRecord, fwd_seq: np.ndarray,
                    fwd_qoffs: np.ndarray, fwd_probs: np.ndarray,
                    rev_qoffs: np.ndarray, rev_probs: np.ndarray,
@@ -54,11 +72,7 @@ def build_mod_tags(rec: BamRecord, fwd_seq: np.ndarray,
     'C' and rev_qoffs on 'G' (native-forward coordinates), both sorted
     ascending.  Probabilities are u8 scaled probs.
     """
-    if not keep_kinetics:
-        for t in KINETICS_TAGS:
-            rec.del_tag(t)
-    rec.del_tag("ML")
-    rec.del_tag("MM")
+    strip_mod_tags(rec, keep_kinetics)
     if len(fwd_qoffs) == 0 and len(rev_qoffs) == 0:
         return
 
@@ -76,12 +90,9 @@ def build_mod_tags(rec: BamRecord, fwd_seq: np.ndarray,
         mm = ("C+m" + _delta_string(np.asarray(fwd_qoffs, np.int64), cum_c) + ";"
               + "G-m" + _delta_string(np.asarray(rev_qoffs, np.int64), cum_g)
               + ";")
-    ml = np.concatenate([
+    set_mod_tags(rec, mm, np.concatenate([
         np.asarray(fwd_probs, np.uint8), np.asarray(rev_probs, np.uint8)
-    ])
-    rec.set_tag("MM", "Z", mm)
-    rec.set_tag("ML", "B", ("C", ml))
-    rec.set_tag("MN", choose_int_type(rec.l_seq), rec.l_seq)
+    ]))
 
 
 _DELTA_BODY_RE = re.compile(r"\d+(?:,\d+)*")

@@ -1,9 +1,12 @@
-"""ctypes bridge to the native I/O core (src/native/bamcore.cpp).
+"""ctypes bridge to the native I/O core (src/native/bamcore.cpp) and to
+the flush-wide MM/ML builder (ops/csrc/mmbuild.cpp).
 
-The library is compiled from the repository's own source at first use
-(ops/build.bamcore_library) into the port's git-ignored build directory.
-Every entry point has a pure-numpy fallback, used when no C++ compiler or
-zlib is available.
+The libraries are compiled from the repository's own sources at first use
+(ops/build.bamcore_library, ops/build.mmbuild_library) into the port's
+git-ignored build directory.  Every I/O core entry point has a pure-numpy
+fallback, used when no C++ compiler or zlib is available; where the MM/ML
+builder is missing, `mm_flush` returns None and the engine builds each
+read's tags on its own.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from ..constants import (BAM_NIBBLE_TO_BASE, BASE_COMPLEMENT,
                          encode_frames_codev1)
 
 _LIB = None
+_MMLIB = None
 
 
 def _load():
@@ -87,6 +91,30 @@ def _load():
 
 def available() -> bool:
     return bool(_load())
+
+
+def _load_mmbuild():
+    global _MMLIB
+    if _MMLIB is not None:
+        return _MMLIB
+    from ..ops.build import mmbuild_library
+    path = mmbuild_library()
+    if path is None:
+        _MMLIB = False
+        return _MMLIB
+    lib = ctypes.CDLL(path)
+    c_i64 = ctypes.c_int64
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.hm_mm_flush.restype = c_i64
+    lib.hm_mm_flush.argtypes = [c_i64, c_i64,              # reads, contexts
+                                u8p, i64p,                 # seq, seq_off
+                                i64p, u8p,                 # offs, strands
+                                i64p, i64p, u8p,           # counts, prob_at, probs
+                                u8p, c_i64, i64p,          # mm, cap, mm_off
+                                u8p, i64p]                 # ml, ml_off
+    _MMLIB = lib
+    return _MMLIB
 
 
 def _u8p(arr: np.ndarray):
@@ -235,6 +263,51 @@ def mm_deltas(seq: np.ndarray, base: int, qoffs: np.ndarray):
     if w < 0:
         raise ValueError("mm_deltas: call offset not on the series base")
     return out.raw[:w]
+
+
+def mm_flush(seq: np.ndarray, seq_off: np.ndarray, offs: np.ndarray,
+             strands: np.ndarray, counts: np.ndarray, prob_at: np.ndarray,
+             probs: np.ndarray):
+    """Every read's MM text and ML bytes of one flush in one native call
+    (ops/csrc/mmbuild.cpp, which documents the layout): `counts` and
+    `prob_at` are (reads, contexts); `offs` and `strands` hold the
+    entries' sites one after another in read-major order.  Returns (MM
+    bytes, MM offsets, ML array, ML offsets), the offsets (reads + 1,)
+    lists; a read without sites has empty slices.  None if the builder is
+    unavailable; ValueError naming the read's index if a call does not
+    sit on its series base."""
+    lib = _load_mmbuild()
+    if not lib:
+        return None
+    n_reads, n_ctx = counts.shape
+    seq = np.ascontiguousarray(seq, np.uint8)
+    seq_off = np.ascontiguousarray(seq_off, np.int64)
+    offs = np.ascontiguousarray(offs, np.int64)
+    strands = np.ascontiguousarray(strands, np.uint8)
+    counts = np.ascontiguousarray(counts, np.int64)
+    prob_at = np.ascontiguousarray(prob_at, np.int64)
+    probs = np.ascontiguousarray(probs, np.uint8)
+    n_sites = len(offs)
+    if (len(seq_off) != n_reads + 1 or prob_at.shape != counts.shape
+            or len(strands) != n_sites or int(counts.sum()) != n_sites
+            or seq_off[-1] > len(seq)
+            or (n_sites and (prob_at.min() < 0 or
+                             (prob_at + counts).max() > len(probs)))):
+        raise ValueError("mm_flush: inconsistent site arrays")
+    # "C+m" ";G-m" ";" a read; a comma and at most 10 digits a call
+    cap = 8 * n_reads + 11 * n_sites
+    mm = np.empty(max(cap, 1), np.uint8)
+    mm_off = np.empty(n_reads + 1, np.int64)
+    ml = np.empty(n_sites, np.uint8)
+    ml_off = np.empty(n_reads + 1, np.int64)
+    w = lib.hm_mm_flush(n_reads, n_ctx, _u8p(seq), _i64p(seq_off),
+                        _i64p(offs), _u8p(strands), _i64p(counts),
+                        _i64p(prob_at), _u8p(probs), _u8p(mm), cap,
+                        _i64p(mm_off), _u8p(ml), _i64p(ml_off))
+    if w < 0:
+        raise ValueError(f"mm_flush: read {-1 - w} of the flush has a call "
+                         f"offset not on its series base")
+    return mm[:w].tobytes(), mm_off.tolist(), ml, ml_off.tolist()
 
 
 def plan_groups_fast(starts_sorted: np.ndarray, group: int, block_rows: int,

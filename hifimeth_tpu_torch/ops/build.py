@@ -1,14 +1,16 @@
 """Build the port's native code from the repository's sources at first use.
 
-Two shared libraries, both compiled into `hifimeth_tpu_torch/_build/`
-(git-ignored) and named by a hash of source and command, so an edited
-source rebuilds and an unchanged one is reused:
+Three kinds of shared library, all compiled into
+`hifimeth_tpu_torch/_build/` (git-ignored) and named by a hash of source and
+command, so an edited source rebuilds and an unchanged one is reused:
 
 - the CUDA kernels (ops/csrc/*.cu): `nvcc` for sm_90a into a library with a
   plain C interface, loaded with ctypes by the kernel wrappers.  No PyTorch
   headers are compiled, which keeps a build to seconds;
 - the host I/O core (src/native/bamcore.cpp): `g++ ... -lz`, loaded by
-  io/native.py, which falls back to numpy when this build is not possible.
+  io/native.py, which falls back to numpy when this build is not possible;
+- the flush-wide MM/ML builder (ops/csrc/mmbuild.cpp): `g++`, loaded by
+  io/native.py; the engine builds tags read by read when it cannot be built.
 
 Concurrent first uses (test workers, processes) serialise on a file lock and
 publish each library with an atomic rename.
@@ -28,6 +30,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "ops", "csrc")
 BAMCORE_SRC = os.path.join(os.path.dirname(PKG_DIR), "src", "native",
                            "bamcore.cpp")
+MMBUILD_SRC = os.path.join(CSRC_DIR, "mmbuild.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -103,16 +106,31 @@ def cuda_library(src: str, name: str) -> str:
     return _build(src, name, nvcc_path(), NVCC_FLAGS, [])
 
 
-def bamcore_library() -> str | None:
-    """Build the host I/O core; None (numpy fallbacks) if that fails."""
-    if not os.path.exists(BAMCORE_SRC):
+def _host_library(src: str, name: str, libs: list[str],
+                  fallback: str) -> str | None:
+    """Build the host source `src` with g++; None (after a warning naming
+    `fallback`) if that is not possible."""
+    if not os.path.exists(src):
         return None
     gxx = shutil.which("g++")
     if gxx is None:
-        warn("g++ not found; host I/O runs on numpy fallbacks")
+        warn("g++ not found; %s", fallback)
         return None
     try:
-        return _build(BAMCORE_SRC, "bamcore", gxx, GXX_FLAGS, ["-lz"])
+        return _build(src, name, gxx, GXX_FLAGS, libs)
     except BuildError as e:
-        warn("%s; host I/O runs on numpy fallbacks", e)
+        warn("%s; %s", e, fallback)
         return None
+
+
+def bamcore_library() -> str | None:
+    """Build the host I/O core; None (numpy fallbacks) if that fails."""
+    return _host_library(BAMCORE_SRC, "bamcore", ["-lz"],
+                         "host I/O runs on numpy fallbacks")
+
+
+def mmbuild_library() -> str | None:
+    """Build the flush-wide MM/ML builder; None (tags built read by read)
+    if that fails."""
+    return _host_library(MMBUILD_SRC, "mmbuild", [],
+                         "MM/ML tags are built read by read")

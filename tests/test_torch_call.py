@@ -128,3 +128,36 @@ def test_cli_call_on_cpu_and_unported_commands(tmp_path, capsys):
     assert "--feature" in text and "not yet ported" not in text
     with pytest.raises(SystemExit):
         main(["call", "--device", "tpu", "a.bam", "b.bam"])
+
+
+@pytest.mark.parametrize("async_emit", [True, False])
+def test_call_flush_builder_matches_per_read_path(tmp_path, monkeypatch,
+                                                  async_emit):
+    """The engine's one native MM/ML build per flush writes the records the
+    per-read fallback writes, byte for byte, async and with --sync-emit;
+    `mmbuild_native` counts the called reads and `mmbuild_calls` the
+    flushes, and both read 0 on the fallback."""
+    from hifimeth_tpu_torch.io import native
+
+    def run(name):
+        out = str(tmp_path / f"{name}.bam")
+        stats_json = str(tmp_path / f"{name}.json")
+        # small flushes, so the golden reads spread over several
+        stats = run_call(os.path.join(DATA, "golden_call_in.bam"), out,
+                         CallConfig(site_batch=512, device="cpu",
+                                    buffer_bases=1 << 14, flush_bases=4096,
+                                    async_emit=async_emit,
+                                    stats_json=stats_json))
+        with open(stats_json) as f:
+            js = json.load(f)
+        return [r.to_bytes() for r in BamReader(out)], stats, js
+
+    got, stats, js = run("native")
+    assert js["schedule"]["flushes"] > 1
+    assert js["timers"]["mmbuild_native"] == stats["called_reads"] > 0
+    assert js["timers"]["mmbuild_calls"] == js["schedule"]["flushes"]
+    monkeypatch.setattr(native, "_load_mmbuild", lambda: False)
+    want, _, js = run("per_read")
+    assert js["timers"]["mmbuild_native"] == js["timers"]["mmbuild_calls"] \
+        == 0
+    assert got == want
