@@ -22,20 +22,22 @@ Behavioral parity with the reference:
 The pipeline is the JAX engine's (hifimeth_tpu/engine/call.py):
  1. decode: `_DecodePrefetcher` threads run decode_read and the site scan
     ahead of the packer, in input order (`decode_workers`);
- 2. pack (the caller's thread): reads pack into the plane buffer; on the
-    planned paths (pallas, fused) each finished 1/H2D_SEGMENTS segment of
-    the buffer ships to the card at once, through a pinned staging buffer
-    on a copy stream, so each segment crosses PCIe once per buffer;
-    fill-through flushes are cut at the last shipped segment
-    (`segment_align`) and reads past it carry over to the next flush;
- 3. dispatch worker: featurize the flush's segments, plan the groups and
-    launch every batch on the engine's compute stream, queue the results'
-    copies to pinned host memory, record the flush's event.  Each batch
-    runs a program (engine/programs.py), the JAX engine's compiled
-    per-batch program: one per (replica, context, strand) on the planned
-    paths, one per (replica, context) on slice and folded (strand is data
-    there), built with the engine and, with `graphs` on the card,
-    replayed as a CUDA graph;
+ 2. pack (the caller's thread): reads pack into the plane buffer; on every
+    path each finished 1/H2D_SEGMENTS segment of the buffer ships to the
+    card at once, through a pinned staging buffer on a copy stream, so
+    each segment crosses PCIe once per buffer.  The planned paths (pallas,
+    fused) also flush before the buffer is full (fill-through, cut at the
+    last shipped segment with `segment_align`; reads past it carry over
+    to the next flush); slice and folded flush when it is exhausted;
+ 3. dispatch worker: featurize the flush's segments into each device's
+    table, plan the sites (groups on the planned paths, site grids on
+    slice and folded) and launch every batch on the engine's compute
+    stream (`_run_programs`), queue the results' copies to pinned host
+    memory, record the flush's event.  Each batch runs a program
+    (engine/programs.py), the JAX engine's compiled per-batch program: one
+    per (replica, context, strand) on the planned paths, one per (replica,
+    context) on slice and folded (strand is data there), built with the
+    engine and, with `graphs` on the card, replayed as a CUDA graph;
  4. resolve worker: wait for that event, scatter and unsort the probs;
  5. emit worker: MM/ML build, one native call for the whole flush
     (ops/csrc/mmbuild.cpp, without the interpreter lock), and the ordered
@@ -499,6 +501,9 @@ class CallEngine:
                     cfg, device=str(resolve_devices(devices)[0]))
                 devices = None
         self.cfg = cfg
+        #: pallas or fused: the group plan, an (8, cap) table and programs
+        #: per strand, and the fill-through flush schedule
+        self._planned = cfg.gather_impl in _PLANNED_GATHERS
         #: where the engine's threads spend their time (engine/spans.py)
         self.spans = SpanRecorder(cfg.trace)
         self.devices = self._device_list(cfg, devices)
@@ -553,11 +558,13 @@ class CallEngine:
         #: planned paths and by context on slice and folded; both built
         #: here, before any pipeline thread starts
         self._tables = self._programs = None
-        #: slice/folded: each device's share of a batch's sites, the
-        #: bounds [lo, hi) of its columns (np.linspace, as the JAX mesh
-        #: splits the batch axis)
-        self._share_bounds = np.linspace(0, cfg.site_batch,
-                                         len(self.devices) + 1).astype(int)
+        #: each device's sites per batch: all of a batch on the planned
+        #: paths (a device calls whole batches); on slice and folded its
+        #: share of one (np.linspace, as the JAX mesh splits the batch
+        #: axis); Python ints, since `slots` goes to --stats-json
+        self._widths = ([cfg.site_batch] * n_dev if self._planned else
+                        np.diff(np.linspace(0, cfg.site_batch, n_dev + 1)
+                                .astype(int)).tolist())
         with self.spans.span("capture"):
             self._build_programs()
         self._reset_buffer()
@@ -575,9 +582,11 @@ class CallEngine:
         (the gather kernel has a variant per strand)."""
         cfg = self.cfg
         cuda = self.device.type == "cuda"
-        planned = cfg.gather_impl in _PLANNED_GATHERS
-        ngrp = cfg.site_batch // GROUP
-        shape = (8, cfg.buffer_bases) if planned else (cfg.buffer_bases, 8)
+        shape = ((8, cfg.buffer_bases) if self._planned
+                 else (cfg.buffer_bases, 8))
+        #: writes a flush's plane segments into a table of that layout
+        self._featurize = (featurize_planes_t_seg if self._planned
+                           else featurize_planes_seg)
         with torch.inference_mode():
             self._tables = [torch.zeros(shape, dtype=torch.float32, device=d)
                             for d in self.devices]
@@ -585,20 +594,20 @@ class CallEngine:
             for d, dev in enumerate(self.devices):
                 pool = GraphPool(dev) if cuda and cfg.graphs else None
                 warmed, progs = set(), {}
-                share = int(self._share_bounds[d + 1] - self._share_bounds[d])
+                width = self._widths[d]
                 for ctx in cfg.contexts:
                     shapes = tuple(tuple(p.shape) for p in
                                    self.replicas[d].models[ctx].parameters())
-                    if not planned:
+                    if not self._planned:
                         progs[ctx] = BatchProgram(
-                            self._site_body(d, ctx, share), 4 * share, share,
+                            self._site_body(d, ctx, width), 4 * width, width,
                             dev, pool=pool, warm=shapes not in warmed)
                         warmed.add(shapes)
                         continue
                     for rev in (False, True):
                         progs[(ctx, rev)] = BatchProgram(
                             self._batch_body(d, ctx, rev),
-                            ngrp * (GROUP + 1), cfg.site_batch, dev,
+                            width // GROUP * (GROUP + 1), width, dev,
                             pool=pool, warm=(shapes, rev) not in warmed)
                         warmed.add((shapes, rev))
                 self._programs.append(progs)
@@ -727,14 +736,14 @@ class CallEngine:
         return host.to(self.devices[d], non_blocking=True)
 
     def _to_primary(self, per_dev: list) -> list:
-        """per_dev[d]: device d's result tensors, made on its stream, over a
+        """per_dev[d]: device d's result tensor, made on its stream, over a
         device list -> the same results on the primary device, ready on the
         current (primary) stream.  A replica on the primary's own device is
-        waited for by event; another card's results are copied on that
+        waited for by event; another card's result is copied on that
         card's stream (PyTorch's cross-device copy_: the source stream
         first waits for the primary stream, where the copy's target is
         allocated, and the primary stream then waits for the copy), and
-        their bytes count as `peer_bytes`.  The CPU's results stay."""
+        its bytes count as `peer_bytes`.  The CPU's results stay."""
         if self.device.type != "cuda":
             self.spans.count("peer_bytes", 0)
             return per_dev
@@ -742,18 +751,17 @@ class CallEngine:
         out = [per_dev[0]]
         peer = 0
         for d in range(1, len(per_dev)):
+            t = per_dev[d]
             if self.devices[d] == self.device:
                 ev = torch.cuda.Event()
                 ev.record(self._computes[d])
                 cur.wait_event(ev)
-                for t in per_dev[d]:
-                    t.record_stream(cur)
-                out.append(per_dev[d])
+                t.record_stream(cur)
+                out.append(t)
             else:
                 with self._stream(d):
-                    out.append([t.to(self.device, non_blocking=True)
-                                for t in per_dev[d]])
-                peer += sum(t.nbytes for t in per_dev[d])
+                    out.append(t.to(self.device, non_blocking=True))
+                peer += t.nbytes
         self.spans.count("peer_bytes", peer)
         return out
 
@@ -821,10 +829,9 @@ class CallEngine:
                 f"{cap}; raise --buffer-bases")
         # the slice/folded paths featurize the whole buffer per flush, so
         # they flush only when it is exhausted (the JAX engine's schedule)
-        planned = self.cfg.gather_impl in _PLANNED_GATHERS
-        fb = (self.cfg.flush_bases if planned else 0) or cap
+        fb = (self.cfg.flush_bases if self._planned else 0) or cap
         ramp = self.cfg.flush_ramp
-        if planned and self.flushes < len(ramp):
+        if self._planned and self.flushes < len(ramp):
             fb = min(fb, ramp[self.flushes])
         packed = self._fill - self._last_flush_fill
         if self._fill + read.size > cap - self._margin:
@@ -844,10 +851,9 @@ class CallEngine:
             self._planes[3, start:end] = read.ri
             self._planes[4, start:end] = read.rp
             self._fill = end + self._gap
-            if planned:
-                # ship the segments this read finished, overlapping the
-                # copy with the host's work on the next reads
-                self._ship_segments(self._fill // self._seg_size)
+            # ship the segments this read finished, overlapping the copy
+            # with the host's work on the next reads
+            self._ship_segments(self._fill // self._seg_size)
 
         with self.spans.span("sites", keep=False):
             pend = _PendingRead(rec, fwd_seq=read.seq, start=start,
@@ -912,7 +918,9 @@ class CallEngine:
         the pipeline (async mode), or dispatch them here and resolve the
         previous flush (sync mode).
 
-        `defer_tail` (fill-through flushes of the planned paths, with
+        The payload is the buffer's shipped segments, plus the segment in
+        progress unless a tail is carried.  `defer_tail` (fill-through
+        flushes, which only the planned paths' schedule makes; with
         segment_align): cut the flush at the last shipped segment - reads
         whose data reaches past it carry over to the next flush - so the
         payload is the segments already on the device.  Until one packed
@@ -925,10 +933,9 @@ class CallEngine:
         the cut to the hand-off, `flush_wait` inside it while the dispatch
         queue is full.  A call that waits for the next read counts in no
         span."""
-        planned = self.cfg.gather_impl in _PLANNED_GATHERS
         with self.spans.span("flush") as span:
             carry = None
-            if (defer_tail and planned and self.cfg.segment_align
+            if (defer_tail and self.cfg.segment_align
                     and self._fill > self._last_flush_fill):
                 carry = self._split_tail()
                 if carry is None and \
@@ -939,22 +946,17 @@ class CallEngine:
             span.flush = seq
             work = None
             if any(p.fwd_seq is not None for p in self._pending):
-                if planned:
-                    self._ship_segments(self._fill // self._seg_size)
-                    payload = list(self._segments)
-                    k = len(payload)
-                    if carry is None and k < self.H2D_SEGMENTS and \
-                            self._fill > k * self._seg_size:
-                        # the segment in progress, shipped for this flush
-                        # only: it ships again, whole, when its last read
-                        # is packed
-                        a = k * self._seg_size
-                        payload.append(self._ship(
-                            self._planes[:, a:a + self._seg_size]))
-                    work = ("segments", payload, self._sites)
-                else:
-                    work = ("planes", self._planes[:, :self._fill],
-                            self._sites)
+                self._ship_segments(self._fill // self._seg_size)
+                payload = list(self._segments)
+                k = len(payload)
+                if carry is None and k < self.H2D_SEGMENTS and \
+                        self._fill > k * self._seg_size:
+                    # the segment in progress, shipped for this flush only:
+                    # it ships again, whole, when its last read is packed
+                    a = k * self._seg_size
+                    payload.append(self._ship(
+                        self._planes[:, a:a + self._seg_size]))
+                work = (payload, self._sites)
                 self.flushes += 1
             pending = self._pending
             self._reset_flush_state()
@@ -1044,35 +1046,29 @@ class CallEngine:
 
     # -- dispatch ----------------------------------------------------------
     def _dispatch_work(self, work, flush: int):
-        """Featurize flush `flush`'s planes and launch every context's
-        batches on the current stream (inside _on_device); returns
-        (futures, event): the event marks the flush's results in host
-        memory."""
+        """Featurize flush `flush`'s plane segments into each device's
+        table, in the table's layout, once each segment's copy is done,
+        then plan and launch every context's batches on the current stream
+        (inside _on_device); returns (futures, event): the event marks the
+        flush's results in host memory."""
         with self.spans.span("dispatch", flush):
-            kind, payload, sites = work
-            cap = self.cfg.buffer_bases
+            segments, sites = work
             hold: list = []
             # every flush rewrites each device's persistent table, which
             # its programs read, on the device's stream after the previous
             # flush's batches that read it
             for d in range(len(self.devices)):
                 with self._stream(d):
-                    if kind == "segments":
-                        segs = []
-                        for t, ev in (seg[d] for seg in payload):
-                            if ev is not None:
-                                stream = torch.cuda.current_stream(
-                                    self.devices[d])
-                                stream.wait_event(ev)
-                                t.record_stream(stream)
-                            segs.append(t)
-                        featurize_planes_t_seg(segs, cap,
-                                               out=self._tables[d])
-                    else:
-                        if len(self.devices) > 1:
-                            self.spans.count("ship_bytes", payload.nbytes)
-                        featurize_planes_seg(self._h2d(payload, hold, d),
-                                             cap, out=self._tables[d])
+                    segs = []
+                    for t, ev in (seg[d] for seg in segments):
+                        if ev is not None:
+                            stream = torch.cuda.current_stream(
+                                self.devices[d])
+                            stream.wait_event(ev)
+                            t.record_stream(stream)
+                        segs.append(t)
+                    self._featurize(segs, self.cfg.buffer_bases,
+                                    out=self._tables[d])
             per_ctx = {ctx: self._call_context(ctx, sites[ctx], hold)
                        for ctx in self.cfg.contexts}
             done = None
@@ -1085,8 +1081,8 @@ class CallEngine:
 
     def _call_context(self, ctx: str, s: dict, hold: list):
         """Plan groups of GROUP position-sorted sites whose windows fit one
-        block and call them over the devices' persistent tables; returns
-        (n_sites, streams, order).
+        block and call them over the devices' persistent tables (slice and
+        folded: _call_context_batched); returns (n_sites, streams, order).
 
         Reverse-strand sites run as a separate stream through the kernels'
         reverse mode, so no per-site strand vector reaches the device.  The
@@ -1095,13 +1091,13 @@ class CallEngine:
         in group order: every device calls batches of the single-device
         shape, with its own models and table on its own stream (the JAX
         engine's call_sites_pallas_dp), and the results come back to the
-        primary device in group order."""
+        primary device in group order (_run_programs)."""
         centers = (np.concatenate(s["centers"]) if s["centers"]
                    else np.empty(0, np.int32))
         n = len(centers)
         if n == 0:
             return n, None, None
-        if self.cfg.gather_impl not in _PLANNED_GATHERS:
+        if not self._planned:
             return self._call_context_batched(ctx, s, centers, hold)
         strands = np.concatenate(s["strands"])
         if n > 1 and not np.all(centers[:-1] <= centers[1:]):
@@ -1146,44 +1142,15 @@ class CallEngine:
                 b128 = np.concatenate([b128, np.zeros(pad_g, np.int32)])
                 rels = np.concatenate([rels, np.zeros((pad_g, GROUP), np.int32)])
             # batch b's groups [b*step, (b+1)*step) go to the devices in
-            # blocks of ngrp
-            b128 = b128.astype(np.int32).reshape(nb, ndev, ngrp)
-            rels = rels.astype(np.int32).reshape(nb, ndev, ngrp, GROUP)
-            probs = self._launch_programs(ctx, rev, b128, rels, hold)
+            # blocks of ngrp; a batch's plan row is its rels, then its
+            # bases (programs.plan_views)
+            plan = np.concatenate(
+                [rels.astype(np.int32).reshape(nb, ndev, ngrp * GROUP),
+                 b128.astype(np.int32).reshape(nb, ndev, ngrp)], axis=2)
+            probs = self._run_programs(
+                (ctx, rev), [plan[:, d] for d in range(ndev)], hold)
             results.append((self._to_host(probs), idx, sel, ng))
         return n, results, order
-
-    def _launch_programs(self, ctx: str, rev: bool, b128: np.ndarray,
-                         rels: np.ndarray, hold: list) -> torch.Tensor:
-        """One strand's (nb, ndev, ngrp) plan through each device's program
-        of (ctx, rev): the device's plan rows in one copy, then per batch
-        its row into the program, a replay and the program's output into
-        the flush's result, all on the device's stream.  Returns the
-        (nb * ndev * site_batch,) u8 probs on the primary device, batch by
-        batch in device order.  Counts the programs' calls (`batches`) and
-        the site slots they compute, padding included (`slots`)."""
-        nb, ndev = b128.shape[:2]
-        sb = self.cfg.site_batch
-        # a batch's plan row: its rels, then its bases (programs.plan_views)
-        plan = np.concatenate([rels.reshape(nb, ndev, -1), b128], axis=2)
-        per_dev = []
-        for d in range(ndev):
-            with self._stream(d):
-                rows = self._h2d(plan[:, d], hold, d)
-                res = torch.empty(nb * sb, dtype=torch.uint8,
-                                  device=self.devices[d])
-                program = self._programs[d][(ctx, rev)]
-                for b in range(nb):
-                    program(rows[b], res[b * sb:(b + 1) * sb])
-                per_dev.append([res])
-        self.spans.count("batches", nb * ndev)
-        self.spans.count("slots", nb * ndev * sb)
-        if ndev == 1:
-            return per_dev[0][0]
-        with self.spans.span("to_primary"):
-            per_dev = self._to_primary(per_dev)
-            return torch.stack([p[0].view(nb, sb) for p in per_dev],
-                               1).reshape(-1)
 
     def _call_context_batched(self, ctx: str, s: dict, centers: np.ndarray,
                               hold: list):
@@ -1191,58 +1158,55 @@ class CallEngine:
         center-0 sites (empty read bounds, so zero windows whose probs are
         dropped at resolve) to the batch decomposition of one device (the
         JAX engine's bucket chunks of call_sites_batched) or to one bucket
-        over a device list (call_sites_grid), then called batch by batch
-        through the programs (_call_grid); returns (n, streams, order) in
-        _resolve's form, one stream in site order."""
+        over a device list (call_sites_grid), as (nb, site_batch) grids
+        split on the second axis into one contiguous share per device:
+        device d's (nb, share) centers, strands, read bounds are its int32
+        plan rows (programs.site_views), called through _run_programs.
+        Returns (n, streams, order) in _resolve's form, one stream in site
+        order."""
         n = len(centers)
         bs = self.cfg.site_batch
         nb = (n + bs - 1) // bs
         nb = (self._bucket_batches(nb) if len(self.devices) > 1
               else sum(self._decompose_batches(nb)))
         pad = nb * bs - n
-        arrays = [np.concatenate([a, np.zeros(pad, a.dtype)]) for a in (
+        grids = [np.concatenate([a, np.zeros(pad, a.dtype)])
+                 .astype(np.int32).reshape(nb, bs) for a in (
             centers, np.concatenate(s["strands"]),
             np.concatenate(s["rstart"]), np.concatenate(s["rend"]))]
-        probs = self._call_grid(ctx, arrays, hold)
+        cuts = np.cumsum(self._widths)[:-1]
+        shares = zip(*(np.split(g, cuts, axis=1) for g in grids))
+        probs = self._run_programs(
+            ctx, [np.concatenate(share, axis=1) for share in shares], hold)
         return n, [(self._to_host(probs), None, None, n)], None
 
-    def _call_grid(self, ctx: str, arrays: list,
-                   hold: list) -> torch.Tensor:
-        """The padded site arrays as (nb, site_batch) grids, split on the
-        second axis into one contiguous share per device (all of it on one
-        device; the JAX engine's call_sites_grid over its mesh).  Device
-        d's (nb, share) centers, strands, read bounds go to it as one
-        int32 plan row per batch in one copy, then per batch its row into
-        the device's program of `ctx`, a replay and the program's output
-        into the flush's result, all on the device's stream.  The shares
-        come back to the primary device as (nb * site_batch,) u8
-        probabilities in site order.  Counts `batches` and `slots` as
-        _launch_programs does."""
-        bs = self.cfg.site_batch
-        grids = [a.astype(np.int32).reshape(-1, bs) for a in arrays]
-        nb = grids[0].shape[0]
+    def _run_programs(self, key, plans: list, hold: list) -> torch.Tensor:
+        """Call each device's (nb, row) int32 plan rows through its program
+        of `key` ((ctx, rev) on the planned paths, ctx on slice and
+        folded): the device's rows in one copy, then per batch its row into
+        the program, a replay and the program's output, _widths[d] sites,
+        into the flush's result, all on the device's stream.  Returns the
+        (nb * sum(_widths),) u8 probs on the primary device, batch by batch
+        in device order.  Counts the programs' calls (`batches`) and the
+        site slots they compute, padding included (`slots`)."""
+        nb = len(plans[0])
         per_dev = []
-        for d in range(len(self.devices)):
-            lo, hi = self._share_bounds[d], self._share_bounds[d + 1]
-            share = hi - lo
-            # a batch's plan row: centers, strands, rstart, rend
-            # (programs.site_views)
-            plan = np.concatenate([g[:, lo:hi] for g in grids], axis=1)
+        for d, (plan, width) in enumerate(zip(plans, self._widths)):
             with self._stream(d):
                 rows = self._h2d(plan, hold, d)
-                res = torch.empty(nb * share, dtype=torch.uint8,
+                res = torch.empty(nb * width, dtype=torch.uint8,
                                   device=self.devices[d])
-                program = self._programs[d][ctx]
+                program = self._programs[d][key]
                 for b in range(nb):
-                    program(rows[b], res[b * share:(b + 1) * share])
-                per_dev.append([res])
-        self.spans.count("batches", nb * len(self.devices))
-        self.spans.count("slots", nb * bs)
+                    program(rows[b], res[b * width:(b + 1) * width])
+                per_dev.append(res)
+        self.spans.count("batches", nb * len(plans))
+        self.spans.count("slots", nb * sum(self._widths))
         if len(per_dev) == 1:
-            return per_dev[0][0]
+            return per_dev[0]
         with self.spans.span("to_primary"):
             per_dev = self._to_primary(per_dev)
-            return torch.cat([p[0].view(nb, -1) for p in per_dev],
+            return torch.cat([p.view(nb, -1) for p in per_dev],
                              dim=1).reshape(-1)
 
     # -- resolve and emit --------------------------------------------------

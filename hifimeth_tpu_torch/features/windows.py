@@ -108,24 +108,24 @@ def _featurize_into(planes: torch.Tensor, out: torch.Tensor) -> None:
 def featurize_planes(planes: torch.Tensor) -> torch.Tensor:
     """(5, N) u8 packed planes -> (N, 8) float32 position-major table (the
     transpose of featurize_planes_t's)."""
-    return featurize_planes_seg(planes, planes.shape[1])
+    return featurize_planes_seg([planes], planes.shape[1])
 
 
-def featurize_planes_seg(prefix: torch.Tensor, cap: int,
+def featurize_planes_seg(segments, cap: int,
                          out: torch.Tensor | None = None) -> torch.Tensor:
-    """Featurize the filled (5, m) prefix of the plane buffer into a
-    (cap, 8) table whose tail [m, cap) is zero: the transpose of
-    featurize_planes_t_seg's table.  With `out` (a contiguous (cap, 8)
-    float32 table on the prefix's device, such as the engine's persistent
-    table that the slice/folded programs read) the table is written there
-    and returned."""
-    table_t = featurize_planes_t_seg([prefix], cap)
+    """Featurize the (5, w_i) plane pieces that cover a prefix of the
+    plane buffer in order into a (cap, 8) table whose tail past them is
+    zero: the transpose of featurize_planes_t_seg's table.  With `out` (a
+    contiguous (cap, 8) float32 table on the pieces' device, such as the
+    engine's persistent table that the slice/folded programs read) the
+    table is written there and returned."""
+    table_t = featurize_planes_t_seg(segments, cap)
     if out is None:
         return table_t.T.contiguous()
     if (tuple(out.shape) != (cap, 8) or out.dtype != torch.float32
-            or out.device != prefix.device or not out.is_contiguous()):
+            or out.device != table_t.device or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous ({cap}, 8) float32 table "
-                         f"on {prefix.device}, got {tuple(out.shape)} "
+                         f"on {table_t.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
     return out.copy_(table_t.T)
 

@@ -1,7 +1,7 @@
 """`call --data-parallel`'s exchange between devices on the CPU: the plane
 ship to every device, each device's share of a batch, and the results
 brought back to the primary device (engine/call.py `_ship`,
-`_launch_programs`, `_call_grid`, `_to_primary`).
+`_run_programs`, `_to_primary`).
 
 What is held:
  - over ["cpu"] * 4, on seeded random nets (train/model.py init_params,
@@ -99,18 +99,12 @@ def test_four_devices_against_the_reference(tmp_path, nets, impl, seed):
 def test_exchange_spans_and_counts(tmp_path, nets, monkeypatch, impl):
     _, in_bam = _pool_bam(tmp_path, 11)
     shipped = []
-    real_ship, real_work = CallEngine._ship, CallEngine._dispatch_work
+    real_ship = CallEngine._ship
 
     def ship(self, piece):
         shipped.append(piece.nbytes)
         return real_ship(self, piece)
-
-    def work(self, w, flush):
-        if w[0] == "planes":
-            shipped.append(w[1].nbytes)
-        return real_work(self, w, flush)
     monkeypatch.setattr(CallEngine, "_ship", ship)
-    monkeypatch.setattr(CallEngine, "_dispatch_work", work)
 
     four, js = _call(tmp_path, "four", in_bam, nets, ["cpu"] * 4,
                      gather_impl=impl, trace=True)

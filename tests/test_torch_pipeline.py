@@ -14,6 +14,9 @@ tests):
    thread is joined (each such test runs under its own timeout);
  - the ramp's first step flushes below one segment, and a carried read's
    bases count toward the next flush;
+ - on every gather route, one device and two, each flush's planes reach
+   the devices only as the segments the packer shipped (`_ship`), which
+   cover the flush's reads;
  - against the JAX engine's async run_call (pallas, interpret mode) on the
    same forced schedule, the parity contract holds: MM/MN byte-equal, ML
    within +-1 with at most 5% of ML bytes off (docs/PARITY.md).
@@ -259,6 +262,60 @@ def test_carried_bases_counted():
             carries += 1
             assert eng._last_flush_fill == packed[0].start
     assert carries > 0
+
+
+@pytest.mark.parametrize("gather_impl,devices", [
+    ("pallas", None), ("pallas", ["cpu", "cpu"]), ("fused", None),
+    ("slice", None), ("slice", ["cpu", "cpu"]), ("folded", None),
+    ("folded", ["cpu", "cpu"])])
+def test_planes_reach_devices_as_shipped_segments(tmp_path, monkeypatch,
+                                                  gather_impl, devices):
+    """On every route each flush's planes reach each device only through
+    _ship: the flush's payload is pieces _ship made, which start at the
+    buffer's first column, follow one another and cover every site's read
+    of the flush; no plane byte goes through _h2d."""
+    shipped = {}                 # id(device tensor) -> (tensor, col, width)
+    real_ship, real_h2d = CallEngine._ship, CallEngine._h2d
+    real_work = CallEngine._dispatch_work
+    flushes = []
+
+    def ship(self, piece):
+        col = (piece.__array_interface__["data"][0]
+               - self._planes.__array_interface__["data"][0])
+        out = real_ship(self, piece)
+        for t, _ in out:
+            shipped[id(t)] = (t, col, piece.shape[1])
+        return out
+
+    def h2d(self, a, hold, d=0):
+        assert a.dtype != np.uint8, "plane bytes through _h2d"
+        return real_h2d(self, a, hold, d)
+
+    def work(self, w, flush):
+        segments, sites = w
+        for d in range(len(self.devices)):
+            pieces = [shipped[id(seg[d][0])][1:] for seg in segments]
+            cols = [col for col, _ in pieces]
+            widths = [width for _, width in pieces]
+            assert cols == [sum(widths[:i]) for i in range(len(widths))]
+            assert sum(widths) <= self.cfg.buffer_bases
+            for s in sites.values():
+                assert all(r.max() <= sum(widths) for r in s["rend"] if
+                           len(r))
+        flushes.append(flush)
+        return real_work(self, w, flush)
+
+    monkeypatch.setattr(CallEngine, "_ship", ship)
+    monkeypatch.setattr(CallEngine, "_h2d", h2d)
+    monkeypatch.setattr(CallEngine, "_dispatch_work", work)
+    recs = _reads(17, n=18)
+    bam = _bam(tmp_path, recs)
+    out = str(tmp_path / "out.bam")
+    run_call(bam, out, CallConfig(**FORCED, gather_impl=gather_impl,
+                                  data_parallel=devices is not None),
+             devices=devices)
+    assert len(flushes) > 1 and shipped
+    assert sum(r[1] is not None for r in _records(out)) >= 8
 
 
 def _jax_tags(path):

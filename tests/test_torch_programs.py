@@ -88,22 +88,26 @@ def _ml_diff(got, want):
 
 
 class _Spy:
-    """Wraps CallEngine._launch_programs: counts the strands called per
+    """Wraps CallEngine._run_programs: counts the strands called per
     direction and the padded groups (base 0, rels 0) of every plan."""
 
     def __init__(self, monkeypatch):
         self.rev = {False: 0, True: 0}
         self.padded = 0
         self.batches = 0
-        launch = CallEngine._launch_programs
+        launch = CallEngine._run_programs
 
-        def spy(eng, ctx, rev, b128, rels, hold):
-            self.rev[rev] += 1
-            self.batches += b128.shape[0]
-            self.padded += int(((b128 == 0) & (rels == 0).all(-1)).sum())
-            return launch(eng, ctx, rev, b128, rels, hold)
+        def spy(eng, key, plans, hold):
+            self.rev[key[1]] += 1
+            self.batches += len(plans[0])
+            n_rels = eng.cfg.site_batch // GROUP * GROUP
+            for plan in plans:
+                rels = plan[:, :n_rels].reshape(len(plan), -1, GROUP)
+                b128 = plan[:, n_rels:]
+                self.padded += int(((b128 == 0) & (rels == 0).all(-1)).sum())
+            return launch(eng, key, plans, hold)
 
-        monkeypatch.setattr(CallEngine, "_launch_programs", spy)
+        monkeypatch.setattr(CallEngine, "_run_programs", spy)
 
 
 @pytest.mark.parametrize("gather_impl,dtype", [("pallas", "float32"),
@@ -360,7 +364,7 @@ def test_featurize_into_a_table():
     assert got is table
     assert torch.equal(table, featurize_planes_t_seg(segs, cap))
     assert not table[:, 2048:].any()
-    assert torch.equal(featurize_planes_seg(torch.cat(segs, 1), cap),
+    assert torch.equal(featurize_planes_seg([torch.cat(segs, 1)], cap),
                        table.T)
     for bad in (torch.empty(8, cap + 1), torch.empty(8, cap,
                                                      dtype=torch.float64),

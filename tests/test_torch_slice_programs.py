@@ -1,5 +1,5 @@
 """The port's slice and folded paths through their per-batch programs
-(engine/programs.py, CallEngine._call_grid) on the CPU.
+(engine/programs.py, CallEngine._run_programs) on the CPU.
 
 On the CPU a BatchProgram runs its body directly over the same static plan
 and output buffers and the same copies as on the card, and the engine
@@ -197,7 +197,8 @@ def test_programs_byte_equal_to_batched_and_grid(models, monkeypatch, impl,
     planes[1:] = rng.integers(0, 256, (4, cap - KMER))
     with torch.inference_mode():
         for table in eng._tables:
-            featurize_planes_seg(torch.from_numpy(planes), cap, out=table)
+            featurize_planes_seg([torch.from_numpy(planes)], cap,
+                                 out=table)
     # 50 batches: two bucket chunks (48 + 2) on one device, one bucket of
     # 64 over the device list
     n = 49 * bs + 23
@@ -354,13 +355,13 @@ def test_featurize_into_a_position_major_table():
     cap = 4096
     planes = torch.from_numpy(rng.integers(0, 256, (5, 3000)).astype(np.uint8))
     table = torch.full((cap, 8), 7.0)
-    assert featurize_planes_seg(planes, cap, out=table) is table
-    assert torch.equal(table, featurize_planes_seg(planes, cap))
+    assert featurize_planes_seg([planes], cap, out=table) is table
+    assert torch.equal(table, featurize_planes_seg([planes], cap))
     assert not table[3000:].any()
     for bad in (torch.empty(cap, 9), torch.empty(8, cap).T,
                 torch.empty(cap, 8, dtype=torch.float64)):
         with pytest.raises(ValueError, match="out must be"):
-            featurize_planes_seg(planes, cap, out=bad)
+            featurize_planes_seg([planes], cap, out=bad)
 
 
 @pytest.mark.parametrize("impl", ["slice", "folded"])

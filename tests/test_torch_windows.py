@@ -94,11 +94,11 @@ def test_featurize_planes_bit_equal_to_jax():
 def test_featurize_prefix_with_zero_tail_equals_whole_buffer():
     planes = _planes(np.random.default_rng(2), margin=KMER)
     m = CAP - KMER                     # the filled prefix; the rest is fill
-    got = featurize_planes_seg(torch.from_numpy(planes[:, :m].copy()), CAP)
+    got = featurize_planes_seg([torch.from_numpy(planes[:, :m].copy())], CAP)
     np.testing.assert_array_equal(got.numpy(),
                                   featurize_planes(torch.from_numpy(planes)))
     with pytest.raises(ValueError):
-        featurize_planes_seg(torch.from_numpy(planes), CAP - 128)
+        featurize_planes_seg([torch.from_numpy(planes)], CAP - 128)
     with pytest.raises(ValueError):
         fold_table(got[:CAP - 8])
 
