@@ -38,14 +38,18 @@ dnamodnet_apply rounds them to bf16 first.
 Convolution routes (`set_conv_impl`, CallConfig.conv_impl), the JAX
 package's `dnamodnet_apply(conv_impl=)`: "direct" runs every conv, its bias
 and its ReLU as one hand-written kernel on the card (ops/conv.py
-`conv1d_relu`; bn0 folds into the first conv's kernel in float32) and as
-F.conv1d with the bias, then F.relu, on the CPU; "im2col" runs every conv
+`conv1d_relu`, which takes the weight packed as the (Cin*K, Cout) matrix;
+bn0 folds into the first conv's kernel in float32) and as F.conv1d with
+the bias, then F.relu, on the CPU; "im2col" runs every conv
 as one matrix product, the padded input unfolded into K strided columns,
 (B*Lo, Cin*K) @ (Cin*K, Cout) plus the bias (the JAX package's
 _conv1d_im2col); "auto" takes im2col where Cin * K <= 256, which is the
 first conv (Cin * K 88 or 104) and the last (192) of every shipped model.
 On the card the product runs on cuBLAS in full float32 (TF32 off, as
-`exact_float32` sets it; the route refuses to run with TF32 on).
+`exact_float32` sets it; the route refuses to run with TF32 on).  Both
+routes take the same (Cin*K, Cout) matrix (ops/conv.py `pack_weight`),
+which `set_conv_impl` makes once per conv from the weights on the module's
+device, and `set_compute_dtype` once more from the bf16-valued weights.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import conv1d_relu, conv1d_relu_plain
+from ..ops.conv import (conv1d_relu, conv1d_relu_plain, pack_weight,
+                        unpack_weight)
 from .onnx_import import load_onnx_graph
 
 
@@ -242,7 +247,8 @@ class _ChannelAffine(nn.Module):
 class _Conv(nn.Module):
     """Conv1d with BN folded in, possibly asymmetric zero padding, ReLU;
     direct, or as one matrix product when `im2col` is set (DNAModNet's
-    set_conv_impl sets it, with the weight as that product's matrix)."""
+    set_conv_impl sets it, and packs the weight as the (Cin*K, Cout)
+    matrix both routes take on the card)."""
 
     def __init__(self, cin: int, cout: int, k: int, geometry):
         super().__init__()
@@ -253,26 +259,29 @@ class _Conv(nn.Module):
         # with the device on every call
         self.stride, self.lo, self.hi = (int(v) for v in geometry)
         self.im2col = False
-        self._mat = None                 # im2col's (Cin*K, Cout) matrix
-
-    def matrix(self, weight: torch.Tensor) -> torch.Tensor:
-        """A (Cout, Cin, K) weight as the im2col product's (Cin*K, Cout)
-        matrix, row c*K + k for channel c and tap k."""
-        return weight.detach().reshape(weight.shape[0], -1).t().contiguous()
+        self._mat = None                 # the packed (Cin*K, Cout) matrix
 
     def forward(self, h: torch.Tensor, weight: torch.Tensor | None = None,
                 bn0: _ChannelAffine | None = None) -> torch.Tensor:
-        """`weight`: the bf16-valued weight of DNAModNet's bf16 mode, in
-        the route's layout ((Cin*K, Cout) for im2col); default the float32
-        one.  `bn0`: the input BatchNorm, applied to `h` first (on the
-        direct route the card's kernel folds it in)."""
+        """`weight`: the bf16-valued weight of DNAModNet's bf16 mode,
+        packed ((Cin*K, Cout)); default the float32 one, packed by
+        set_conv_impl on the card.  `bn0`: the input BatchNorm, applied to
+        `h` first (on the direct route the card's kernel folds it in)."""
+        mat = self._mat if weight is None else weight
         if self.im2col:
             h = h if bn0 is None else bn0(h)
-            return self._im2col(h, self._mat if weight is None else weight)
-        w = self.weight if weight is None else weight
+            return self._im2col(h, mat)
         affine = () if bn0 is None else (bn0.scale, bn0.shift)
-        conv = conv1d_relu if h.is_cuda else conv1d_relu_plain
-        return conv(h, w, self.bias, self.stride, (self.lo, self.hi), *affine)
+        pad = (self.lo, self.hi)
+        if h.is_cuda:
+            if mat is None:
+                raise RuntimeError("the card's direct route takes the packed "
+                                   "weight: call set_conv_impl after moving "
+                                   "the module to its device")
+            return conv1d_relu(h, mat, self.bias, self.stride, pad, *affine)
+        w = self.weight if weight is None else unpack_weight(weight,
+                                                             h.shape[1])
+        return conv1d_relu_plain(h, w, self.bias, self.stride, pad, *affine)
 
     def _im2col(self, h: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
         """(B, Cin, L) -> (B, Cout, Lo): the padded input's K strided
@@ -310,32 +319,32 @@ class DNAModNet(nn.Module):
     def set_compute_dtype(self, dtype: torch.dtype) -> "DNAModNet":
         """float32 or bfloat16 (see the module notes).  bf16 keeps, beside
         the float32 parameters, every conv and FC weight rounded to bf16
-        (stored as float32; an im2col conv's as its matrix), so call it
-        after moving the module to its device."""
+        (stored as float32; a conv's packed as its (Cin*K, Cout) matrix),
+        so call it after moving the module to its device."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, "
                              f"got {dtype}")
         self.compute_dtype = dtype
         self._low = () if dtype == torch.float32 else (
-            [c.matrix(c.weight.detach().to(dtype).float()) if c.im2col
-             else c.weight.detach().to(dtype).float() for c in self.convs],
+            [pack_weight(c.weight.detach().to(dtype).float())
+             for c in self.convs],
             self.fc1.weight.detach().to(dtype).float(),
             self.fc2.weight.detach().to(dtype).float())
         return self
 
     def set_conv_impl(self, conv_impl: str) -> "DNAModNet":
         """The convolutions' route, "direct", "im2col" or "auto", per
-        layer by the JAX package's rule (see the module notes).  The
-        im2col matrices are made here, once, from the weights on the
-        module's device, so call it after moving the module there; the
-        bf16 weights follow the route."""
+        layer by the JAX package's rule (see the module notes).  Every
+        conv's packed (Cin*K, Cout) matrix, which either route takes, is
+        made here, once, from the weights on the module's device, so call
+        it after moving the module there."""
         routes = [uses_im2col(conv_impl, c.weight.shape[1], c.weight.shape[2])
                   for c in self.convs]
         self.conv_impl = conv_impl
         for conv, im2col in zip(self.convs, routes):
             conv.im2col = im2col
-            conv._mat = conv.matrix(conv.weight) if im2col else None
-        return self.set_compute_dtype(self.compute_dtype)
+            conv._mat = pack_weight(conv.weight)
+        return self
 
     @classmethod
     def from_state_dict(cls, sd: dict[str, torch.Tensor]) -> "DNAModNet":

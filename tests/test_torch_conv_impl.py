@@ -33,6 +33,7 @@ from hifimeth_tpu_torch.engine.call import (CallConfig, CallEngine, ModelSet,
                                             run_call)
 from hifimeth_tpu_torch.model.cnn import (DNAModNet, load_model_npz,
                                           params_from_jax, uses_im2col)
+from hifimeth_tpu_torch.ops.conv import pack_weight
 
 from test_torch_dtype import _windows
 from test_torch_slice_programs import (SMALL, assert_against_jax, reads_bam,
@@ -136,7 +137,8 @@ def test_route_rule_and_unknown_names(tmp_path):
     # switching back restores direct
     model.set_conv_impl("im2col").set_conv_impl("direct")
     assert not any(c.im2col for c in model.convs)
-    assert all(c._mat is None for c in model.convs)
+    assert all(torch.equal(c._mat, pack_weight(c.weight))
+               for c in model.convs)
 
 
 def test_model_sets_keyed_by_route():

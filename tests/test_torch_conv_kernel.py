@@ -1,5 +1,14 @@
 """The direct route's convolution wrapper (ops/conv.py conv1d_relu) on the
-CPU, where it runs its plain version.
+CPU, where it runs its plain version, and the weight layout it takes.
+
+The wrapper takes the weight packed (pack_weight): the (Cin*K, Cout)
+matrix, row c*K + k, which the model makes once when it is loaded
+(set_conv_impl, and set_compute_dtype for bf16).  For each of the seven
+shipped layer shapes the packed matrix holds w[:, c, k] in row c*K + k,
+unpacks to the weight bit for bit, and the plain version run from it
+equals F.conv1d bit for bit, in float32 and on bf16-valued inputs and
+weights; a weight in another layout (unpacked, transposed, of other rows,
+off 16-byte alignment) is refused.
 
 The plain version must be the arithmetic DNAModNet's direct route ran
 before the kernel, bit for bit: F.conv1d with the bias then F.relu, for
@@ -24,7 +33,8 @@ import torch.nn.functional as F
 from hifimeth_tpu_torch.model.cnn import CONV_IMPLS, load_model_npz
 from hifimeth_tpu_torch.ops import build
 from hifimeth_tpu_torch.ops.conv import (PAD, SHAPES, STRIDE, conv1d_relu,
-                                         conv1d_relu_plain, out_length)
+                                         conv1d_relu_plain, out_length,
+                                         pack_weight, unpack_weight)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = os.path.join(ROOT, "models")
@@ -65,10 +75,11 @@ def test_plain_is_the_former_arithmetic(ctx, layer, bf16_valued):
         x = x.to(torch.bfloat16).float()
         w = w.to(torch.bfloat16).float()
     want = F.relu(F.conv1d(x, w, conv.bias, stride=STRIDE, padding=PAD[0]))
-    got = conv1d_relu(x, w, conv.bias, STRIDE, PAD)
+    got = conv1d_relu(x, pack_weight(w), conv.bias, STRIDE, PAD)
     assert got.shape == (3, cout, out_length(x.shape[2], k))
     assert torch.equal(got, want)
-    assert torch.equal(conv(x, None if not bf16_valued else w), want)
+    assert torch.equal(conv(x, None if not bf16_valued else pack_weight(w)),
+                       want)
 
 
 @pytest.mark.parametrize("ctx", CONTEXTS)
@@ -78,14 +89,14 @@ def test_bn0_folds_into_the_first_layer(ctx):
     x = _x(np.random.default_rng(7), 4, 8, KMER)
     want = F.relu(F.conv1d(bn0(x), conv.weight, conv.bias, stride=STRIDE,
                            padding=PAD[0]))
-    got = conv1d_relu(x, conv.weight, conv.bias, STRIDE, PAD, bn0.scale,
+    got = conv1d_relu(x, conv._mat, conv.bias, STRIDE, PAD, bn0.scale,
                       bn0.shift)
     assert torch.equal(got, want)
     assert torch.equal(conv(x, bn0=bn0), want)
     # the padding pads bn0's output with 0: padding the input instead
     # (so that a padded position reads `shift`) moves both edge outputs
     shift = bn0.shift + 1.0
-    got = conv1d_relu(x, conv.weight, conv.bias, STRIDE, PAD, bn0.scale,
+    got = conv1d_relu(x, conv._mat, conv.bias, STRIDE, PAD, bn0.scale,
                       shift)
     padded_in = F.pad(x, PAD) * bn0.scale[:, None] + shift[:, None]
     wrong = F.relu(F.conv1d(padded_in, conv.weight, conv.bias, stride=STRIDE))
@@ -95,8 +106,42 @@ def test_bn0_folds_into_the_first_layer(ctx):
         assert (got[..., edge] - wrong[..., edge]).abs().max() > 1e-2
 
 
+SHAPE_IDS = [f"{cin}x{k}-{cout}" for cin, k, cout in sorted(SHAPES)]
+
+
+@pytest.mark.parametrize("bf16_valued", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(SHAPES), ids=SHAPE_IDS)
+def test_packed_weight_layout(shape, bf16_valued):
+    cin, k, cout = shape
+    rng = np.random.default_rng(cin * k + cout)
+    w, x = _x(rng, cout, cin, k), _x(rng, 2, cin, 2 * k + 9)
+    if bf16_valued:
+        w, x = w.to(torch.bfloat16).float(), x.to(torch.bfloat16).float()
+    packed = pack_weight(w)
+    assert packed.shape == (cin * k, cout) and packed.is_contiguous()
+    for c in (0, cin // 2, cin - 1):
+        for t in range(k):
+            assert torch.equal(packed[c * k + t], w[:, c, t])
+    assert torch.equal(unpack_weight(packed, cin), w)
+    bias = _x(rng, cout)
+    want = F.relu(F.conv1d(x, w, bias, stride=STRIDE, padding=PAD[0]))
+    assert torch.equal(conv1d_relu(x, packed, bias, STRIDE, PAD), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_model_packs_its_weights_once(dtype):
+    model = _model("CHH", dtype=dtype)
+    for i, conv in enumerate(model.convs):
+        assert torch.equal(conv._mat, pack_weight(conv.weight))
+        if dtype == torch.bfloat16:
+            assert torch.equal(model._low[0][i], pack_weight(
+                conv.weight.to(dtype).float()))
+
+
 def _args(rng, cin=128, k=3, cout=96, length=25):
-    return dict(x=_x(rng, 2, cin, length), weight=_x(rng, cout, cin, k),
+    return dict(x=_x(rng, 2, cin, length),
+                weight=pack_weight(_x(rng, cout, cin, k)),
                 bias=_x(rng, cout), stride=STRIDE, pad=PAD)
 
 
@@ -112,7 +157,16 @@ def _bad_args(case):
     elif case == "x not contiguous":
         a["x"] = a["x"].transpose(1, 2).contiguous().transpose(1, 2)
     elif case == "weight not contiguous":
-        a["weight"] = a["weight"].transpose(0, 2).contiguous().transpose(0, 2)
+        a["weight"] = a["weight"].t().contiguous().t()
+    elif case == "weight (Cout, Cin, K)":
+        a["weight"] = unpack_weight(a["weight"], 128).contiguous()
+    elif case == "weight transposed":
+        a["weight"] = a["weight"].t().contiguous()
+    elif case == "weight rows not Cin * K":
+        a["weight"] = a["weight"][:-1].contiguous()
+    elif case == "weight off 16 bytes":
+        flat = torch.zeros(a["weight"].numel() + 1)
+        a["weight"] = flat[1:].view(a["weight"].shape)
     elif case == "shape not shipped":
         a = _args(rng, cin=16, k=5, cout=32)
     elif case == "cout not shipped":
@@ -141,7 +195,9 @@ def _bad_args(case):
 
 
 BAD = ["x float64", "x bfloat16", "weight float16", "x not contiguous",
-       "weight not contiguous", "shape not shipped", "cout not shipped",
+       "weight not contiguous", "weight (Cout, Cin, K)", "weight transposed",
+       "weight rows not Cin * K", "weight off 16 bytes",
+       "shape not shipped", "cout not shipped",
        "stride 1", "pad (2, 1)", "bias of another width",
        "x of another width", "bn0 on a later layer", "scale without shift",
        "scale of another width", "input too short"]
@@ -158,7 +214,8 @@ def test_no_launch_on_the_cpu():
     conv1d_relu.launches = 0
     rng = np.random.default_rng(4)
     a = _args(rng)
-    want = conv1d_relu_plain(**a)
+    want = conv1d_relu_plain(**{**a, "weight": unpack_weight(a["weight"],
+                                                             128)})
     assert torch.equal(conv1d_relu(**a), want)
     model = _model("CHH")
     with torch.inference_mode():
@@ -178,7 +235,9 @@ def _former_forward(model, x):
     each direct conv F.conv1d with the bias then F.relu."""
     cd = model.compute_dtype
     low = cd != torch.float32
-    w_convs = model._low[0] if low else [None] * len(model.convs)
+    w_convs = ([unpack_weight(w, c.weight.shape[1]) if not c.im2col else w
+                for c, w in zip(model.convs, model._low[0])] if low
+               else [None] * len(model.convs))
 
     def rnd(h):
         return h.to(cd).float() if low else h
