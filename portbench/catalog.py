@@ -6,7 +6,10 @@
 - traffic/<name>.json: one traffic mix (inputs.py reads it);
 - metrics/<name>.py: one per-layer metric, a module with ``MOVES`` (the
   end-to-end metric it moves) and ``read(run)``, which returns the number
-  or None where the run holds nothing to read.
+  or None where the run holds nothing to read, and optionally ``ROUTES``,
+  the `call` gather routes whose layer it reads (without it, every route):
+  a cell lists exactly the metrics that apply to it (`applies`): those of
+  its configuration's route that move its leading end-to-end metric.
 
 A later cell, mix or metric is a new file and a new entry; no file here
 changes for it.
@@ -19,6 +22,8 @@ import os
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(ROOT)
+#: the `call` gather routes (CallConfig.gather_impl, "auto" being "pallas")
+ROUTES = ("pallas", "fused", "slice", "folded")
 
 
 def set_cache_dirs() -> None:
@@ -75,7 +80,53 @@ def metric(name: str, root: str = ROOT):
     if not callable(getattr(mod, "read", None)) or \
             not isinstance(getattr(mod, "MOVES", None), str):
         raise TypeError(f"{path} must define MOVES and read(run)")
+    routes = getattr(mod, "ROUTES", ROUTES)
+    if not isinstance(routes, tuple) or not routes \
+            or not set(routes) <= set(ROUTES):
+        raise TypeError(f"{path}: ROUTES must be a non-empty tuple of "
+                        f"{', '.join(ROUTES)}")
     return mod
+
+
+def route(config: dict) -> str:
+    """The gather route a configuration runs: its `call.gather_impl`,
+    absent or "auto" meaning "pallas", as CallConfig documents."""
+    impl = config.get("call", {}).get("gather_impl", "auto")
+    impl = "pallas" if impl == "auto" else impl
+    if impl not in ROUTES:
+        raise ValueError(f"configuration {config.get('name')!r}: unknown "
+                         f"gather_impl {impl!r}")
+    return impl
+
+
+def leading(bench: dict, cell: str) -> str:
+    """The first end-to-end metric of `bench` that a cell reports, the one
+    its per-layer metrics move: sites_per_s where the cell reports it."""
+    return next(m["name"] for m in bench["end_to_end"]
+                if cell in m.get("workloads", [cell]))
+
+
+def applies(bench: dict, cell: str, root: str = ROOT) -> list:
+    """The names of the per-layer metrics of `bench` that apply to a cell:
+    those whose reader reads a layer its configuration's route runs and
+    moves the cell's leading end-to-end metric."""
+    r = route(config(workload(bench, cell)["config"], root))
+    lead = leading(bench, cell)
+    out = []
+    for m in bench["per_layer"]:
+        mod = metric(m["name"], root)
+        if r in getattr(mod, "ROUTES", ROUTES) and mod.MOVES == lead:
+            out.append(m["name"])
+    return out
+
+
+def twin(path: str, base: str):
+    """(ROUTES, read) of the reader `base` beside the reader file `path`:
+    for a metric that reads what `base` reads, in the cells whose leading
+    end-to-end metric is another than the one `base` moves."""
+    mod = metric(base, os.path.dirname(os.path.dirname(os.path.abspath(
+        path))))
+    return getattr(mod, "ROUTES", ROUTES), mod.read
 
 
 def discover(root: str = ROOT) -> dict:

@@ -149,15 +149,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              else [torch.device("cuda:0")] if cuda else [])
     work = tempfile.mkdtemp(prefix="portbench-")
     try:
+        marks = [("imports_and_cuda", time.perf_counter())]
         pool = inputs.make_pool(traffic, seed)
+        marks.append(("pool", time.perf_counter()))
         blocks = inputs.encode_pool(pool)
+        marks.append(("encode", time.perf_counter()))
         warm = inputs.PoolStream(blocks, limit=min(WARM_READS,
                                                    pool.n_reads))
         run_call(warm, os.path.join(work, "warm.bam"),
                  cell.call_config(device, overrides), devices=dev_list)
         if cuda:
             _sync(cards)
-        setup_s = time.perf_counter() - t_start
+        marks.append(("warm_call", time.perf_counter()))
+        setup_s = marks[-1][1] - t_start
+        log("[portbench] setup split: " + ", ".join(
+            f"{name} {t - t_prev:.4f} s" for (name, t), t_prev in
+            zip(marks, [t_start] + [t for _, t in marks])))
 
         gc.collect()
         if cuda:
@@ -179,12 +186,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                     prof = st.enter_context(
                         profile(activities=[ProfilerActivity.CUDA]))
                     t_mark0 = devtrace.marker(cards)
-            t0 = time.perf_counter()
+            t0, cpu0 = time.perf_counter(), time.process_time()
             stream.start(seconds)
             stats = run_call(stream, out_path, cfg, devices=dev_list)
             if cuda:
                 _sync(cards)
-            t1 = time.perf_counter()
+            t1, cpu1 = time.perf_counter(), time.process_time()
             if prof is not None:
                 t_mark1 = devtrace.marker(cards)
         window_s = t1 - t0
@@ -207,7 +214,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                                                       t0, t1, stamps)
         log(f"[portbench] {cell.name} seed {seed}: {stream.served} reads, "
             f"{n_sites} sites ({sites}) in {window_s:.4f} s, setup "
-            f"{setup_s:.4f} s, peak reserved {peak / 2**20:.1f} MiB")
+            f"{setup_s:.4f} s, peak reserved {peak / 2**20:.1f} MiB, "
+            f"process CPU in the window {cpu1 - cpu0:.4f} s")
         metrics = window_metrics(cell, run, setup_s, peak, trace)
         prof = None
         gc.collect()

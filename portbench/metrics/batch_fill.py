@@ -1,7 +1,8 @@
 """Featurize, plan and launch (engine/call.py _call_context,
-_decompose_batches, _launch_programs, _call_grid): the sites written as a
-share of the site slots the card computed (the engine's `slots` count,
-bucket padding included), in %; only in a run traced on the card."""
+_decompose_batches, _run_programs, the one launch loop of every route):
+the sites written as a share of the site slots the card computed
+(the engine's `slots` count, bucket padding included), in %; only in a
+run traced on the card."""
 MOVES = "sites_per_s"
 
 

@@ -1,8 +1,8 @@
-"""The balance of the split over the cards (engine/call.py
-_launch_programs, _call_grid): (most busy - least busy) / most busy over
-the cards' busy seconds in the traced window (the union of each card's
-kernel and copy intervals), in %.  Only in a run traced on the card; 0 on
-one card."""
+"""The balance of the split over the cards (engine/call.py _widths, each
+card's share of a batch, and _run_programs, which launches it):
+(most busy - least busy) / most busy over the cards' busy seconds in the
+traced window (the union of each card's kernel and copy intervals), in %.
+Only in a run traced on the card; 0 on one card."""
 MOVES = "sites_per_s"
 
 

@@ -1,7 +1,11 @@
-"""CNN on the card (model/cnn.py: cuDNN convolutions, cuBLAS products,
-elementwise kernels): the model FLOPs of the sites called at the bf16
+"""CNN on the card: the model FLOPs of the sites called at the bf16
 tensor-core peak, as a share of the device time of every kernel but the
-window gather and the copies, in %."""
+window-gather kernel and the copies, in %.  On the pallas route that time
+is the `conv1d_relu` kernels (ops/csrc/conv1d_relu.cu, each conv with its
+bias and ReLU), cuBLAS's two products (fc1, fc2) and the elementwise tail
+(model/cnn.py, the u8 conversion) beside the table's featurize; on the
+fused route it is the fused kernel (ops/csrc/fused_forward.cu), which
+gathers and runs the whole net, beside the same featurize."""
 from portbench import devtrace, roofline
 
 MOVES = "sites_per_s"

@@ -1,9 +1,12 @@
 """Window-gather kernel (ops/csrc/group_windows.cu): its least time, the
 bytes the window's sites need (roofline.gather_bytes) at the HBM peak,
-as a share of its device time in the traced window, in %."""
+as a share of its device time in the traced window, in %.  Only the
+pallas route launches that kernel: the fused route gathers inside its one
+kernel, slice and folded by indexing."""
 from portbench import devtrace, roofline
 
 MOVES = "sites_per_s"
+ROUTES = ("pallas",)
 
 
 def read(run):

@@ -51,12 +51,13 @@ def main() -> int:
         print(f"portbench: {args.workload} needs {cell.chips} CUDA devices, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
-    print(f"[portbench] card: {harness.card_line()}; torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}", file=sys.stderr)
 
     result, numbers = harness.run_cell(
         cell, args.seed, args.seconds, bool(args.trace), T_START,
         log=lambda s: print(s, file=sys.stderr))
+    # after the run, so that set-up holds only what the run needs
+    print(f"[portbench] card: {harness.card_line()}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", file=sys.stderr)
     bad = harness.forbidden_modules()
     if bad:
         print(f"portbench: loaded forbidden modules: {', '.join(bad)}",

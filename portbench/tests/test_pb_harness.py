@@ -19,14 +19,25 @@ LATER = [{"name": "cpg-human-hifi", "config": "hifimeth-cpg",
 
 
 def bench():
+    """BENCHMARK.json with the LATER cells, each in the `workloads` of
+    every end-to-end metric that lists its cells, as a change that adds
+    one puts it."""
     b = catalog.load_benchmark()
-    b["workloads"] = b["workloads"] + LATER
+    names = {w["name"] for w in b["workloads"]}
+    later = [w for w in LATER if w["name"] not in names]
+    b["workloads"] = b["workloads"] + later
+    for m in b["end_to_end"]:
+        if "workloads" in m:
+            m["workloads"] = m["workloads"] + [w["name"] for w in later]
     return b
 
 
 def run(name, shrink, cpu_call, trace=False, devices=None, n_reads=3,
-        limit=6, seed=2**31 + 99):
-    cell = harness.Cell(bench(), name)
+        limit=6, seed=2**31 + 99, copy=None):
+    """One small CPU run of cell `name`, from this BENCHMARK.json and its
+    LATER cells, or from `copy` (a `fused_copy`)."""
+    cell = (harness.Cell(bench(), name) if copy is None else
+            harness.Cell(copy.bench, name, root=copy.root))
     result, numbers = harness.run_cell(
         cell, seed, 60.0, trace, time.perf_counter(), device="cpu",
         devices=devices, overrides=cpu_call,
@@ -35,10 +46,22 @@ def run(name, shrink, cpu_call, trace=False, devices=None, n_reads=3,
     return result, dict((k, v) for k, v, _ in numbers)
 
 
+#: the fused route's cell, which a later change adds (`fused_copy`)
+FUSED = "3ctx-plant-hifi-fused"
+
+
+def copy_for(name, request):
+    """The `fused_copy` for the fused route's cell, else None."""
+    return request.getfixturevalue("fused_copy") if name == FUSED else None
+
+
 @pytest.mark.parametrize("name", ["3ctx-plant-hifi", "3ctx-plant-noamp",
-                                  "cpg-human-hifi"])
-def test_sound_run_is_correct(name, shrink, cpu_call):
-    result, numbers = run(name, shrink, cpu_call)
+                                  "cpg-human-hifi", FUSED])
+def test_sound_run_is_correct(name, shrink, cpu_call, request):
+    """Sound runs come out correct; on the fused route too, whose records
+    the check and the reference take as they are."""
+    result, numbers = run(name, shrink, cpu_call,
+                          copy=copy_for(name, request))
     assert result["correct"] and result["failed"] == 0
     assert result["attempted"] == 6
     assert numbers == {"missing": 0, "site_mismatch": 0, "ml_gap_u8": 0.0}
@@ -77,6 +100,15 @@ def _alter_answers(monkeypatch):
     monkeypatch.setattr(windows, "logits_to_scaled_probs", altered)
 
 
+def _alter_fused_answers(monkeypatch):
+    """An answer altered where the fused route produces it: every u8
+    probability of the fused kernel's conversion moves by one bin."""
+    from hifimeth_tpu_torch.ops import fused
+    real = fused.logits_to_scaled_probs
+    monkeypatch.setattr(fused, "logits_to_scaled_probs",
+                        lambda logits: real(logits) ^ 1)
+
+
 def _drop_a_site(monkeypatch):
     """A site lost in the scan: the last candidate of every read."""
     from hifimeth_tpu_torch.features import sites
@@ -105,11 +137,13 @@ def _no_exchange(monkeypatch):
     ("cpg-human-hifi", _alter_answers, None),
     ("3ctx-plant-noamp", _drop_a_site, None),
     ("3ctx-plant-hifi-dp4", _no_exchange, ["cpu"] * 4),
+    (FUSED, _alter_fused_answers, None),
 ])
 def test_broken_path_is_not_correct(name, fault, devices, monkeypatch,
-                                    shrink, cpu_call):
+                                    shrink, cpu_call, request):
     fault(monkeypatch)
-    result, numbers = run(name, shrink, cpu_call, devices=devices)
+    result, numbers = run(name, shrink, cpu_call, devices=devices,
+                          copy=copy_for(name, request))
     assert not result["correct"]
     assert result["failed"] > 0
 
